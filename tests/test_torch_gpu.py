@@ -1,0 +1,94 @@
+"""The CUDA kernels of the torch port against their plain PyTorch versions,
+on the card. Every test here needs a CUDA GPU and skips without one; run
+them there with
+
+  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+This file imports neither JAX nor the reference package, so it runs where
+only PyTorch is installed. Tolerance rtol=1e-5, atol=1e-4 (f32, another
+summation order)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import cache as tc
+from repro_torch.core import tiered as tt
+from repro_torch.kernels.packed_attention import (
+    fused_packed_attention,
+    fused_packed_attention_torch,
+)
+
+TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _random_cache(gen, B, Hkv, D, L, spec, lengths, device):
+    cfg = tc.PackKVConfig(pack_size=spec.pack_size, k_spec_static=spec,
+                          v_spec_static=spec)
+    cache = tc.alloc_layer_cache(cfg, B, Hkv, D, L, device=device)
+    for r, n in enumerate(lengths):
+        if n:
+            k = torch.randn((Hkv, n, D), generator=gen, device=device).to(torch.bfloat16)
+            v = torch.randn((Hkv, n, D), generator=gen, device=device).to(torch.bfloat16)
+            tc.insert_prefill(cache, r, k, v)
+    return cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths,counts,pack,G", [
+    ((1, 2, 4, 8), (32, 32, 32, 32), 8, 1),
+    ((4, 16), (96, 32), 16, 4),
+])
+def test_cuda_kernel_matches_plain(cuda, widths, counts, pack, G):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    spec = tt.TierSpec(widths, counts, pack)
+    cache = _random_cache(gen, 3, 4, 128, 512, spec, (512, 200, 0), cuda)
+    q = torch.randn((3, 4 * G, 128), generator=gen, device=cuda)
+    for n_bucket in (None, 256):
+        c = tc.slice_compressed(cache, n_bucket)
+        n = torch.clamp(c.n_comp, max=c.k.capacity)
+        before = fused_packed_attention.launches
+        got = fused_packed_attention(q, c.k, c.v, n, 0.1)
+        again = fused_packed_attention(q, c.k, c.v, n, 0.1)
+        torch.cuda.synchronize()
+        assert fused_packed_attention.launches == before + 2
+        want = fused_packed_attention_torch(q, c.k, c.v, n, 0.1)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)  # deterministic: no atomics
+            torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.gpu
+def test_smoke_engine_fused_equals_ref_on_cuda(cuda):
+    """The serving path on the card: the fused kernel backend and the
+    plain reference backend give the same greedy tokens on the smoke
+    model, and every decode step launched the kernel once per layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    cfg = get_arch("llama2-7b", smoke=True)
+    params = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    outs = {}
+    for backend in ("fused", "ref"):
+        eng = Engine(cfg, params, tc.PackKVConfig(),
+                     EngineConfig(capacity=512, max_batch=2, backend=backend))
+        server = SlotServer(eng)
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((200, 130, 70)):
+            server.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab, n),
+                                  max_new=100))
+        fused_packed_attention.launches = 0
+        outs[backend] = {r.rid: list(r.output) for r in server.run()}
+        launches = fused_packed_attention.launches
+        steps = server.stats.decode_steps
+        assert launches == (cfg.n_layers * steps if backend == "fused" else 0)
+    agree = np.mean([np.mean(np.equal(outs["fused"][i], outs["ref"][i]))
+                     for i in outs["ref"]])
+    assert agree > 0.5, outs  # float order differs; near-ties may flip

@@ -1,0 +1,86 @@
+"""Shared helpers of the torch-port tests (tests/test_torch_*.py): run the
+JAX reference compiled without excess precision, carry its caches across
+as numpy, and compare caches leaf by leaf."""
+import jax
+import numpy as np
+
+from repro_torch.convert import layer_cache_from_numpy, layer_cache_to_numpy
+
+# XLA may keep bf16 intermediates in f32 ("excess precision"); the
+# reference's written math rounds them, so compile without it.
+EXACT = {"xla_allow_excess_precision": False}
+
+
+def jit_exact(fn, **kw):
+    return jax.jit(fn, compiler_options=EXACT, **kw)
+
+
+def ref_cache_arrays(c) -> dict:
+    """A reference ``LayerKVCache`` (dense) -> the numpy dict of
+    ``repro_torch.convert``."""
+    def tiered(tc):
+        if tc is None:
+            return None
+        return {"tiers": [{"payload": np.asarray(t.payload),
+                           "mins": np.asarray(t.mins),
+                           "shifts": np.asarray(t.shifts)} for t in tc.tiers],
+                "chan_perm": np.asarray(tc.chan_perm),
+                "scale": np.asarray(tc.scale), "zero": np.asarray(tc.zero)}
+
+    opt = lambda a: None if a is None else np.asarray(a)
+    return {"k": tiered(c.k), "v": tiered(c.v), "raw_k": opt(c.raw_k),
+            "raw_v": opt(c.raw_v), "resid_k": np.asarray(c.resid_k),
+            "resid_v": np.asarray(c.resid_v), "n_comp": np.asarray(c.n_comp),
+            "n_resid": np.asarray(c.n_resid)}
+
+
+def spec_tuple(spec):
+    return (spec.widths, spec.counts, spec.pack_size)
+
+
+def ref_cache_to_torch(c, pack_cfg, device="cpu"):
+    """Carry a reference dense ``LayerKVCache`` into the port."""
+    ks = vs = None
+    if c.k is not None:
+        ks, vs = spec_tuple(c.k.spec), spec_tuple(c.v.spec)
+    return layer_cache_from_numpy(ref_cache_arrays(c), pack_cfg, ks, vs, device)
+
+
+def _flat(d, prefix=""):
+    if isinstance(d, dict):
+        for k, v in d.items():
+            yield from _flat(v, f"{prefix}{k}.")
+    elif isinstance(d, list):
+        for i, v in enumerate(d):
+            yield from _flat(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], d
+
+
+def assert_zero_fma_close(got, want, scale, c: int):
+    """Zero-points ``lo + c * scale`` that may differ only by the compiled
+    reference fusing them into one FMA: within half an ulp of ``c * scale``
+    (its dropped rounding) plus half an ulp of each result."""
+    cs = np.abs(np.float32(c) * scale)
+    bound = 0.5 * (np.spacing(cs) + np.spacing(np.abs(got)) + np.spacing(np.abs(want)))
+    assert np.all(np.abs(got - want) <= bound), np.max(np.abs(got - want) - bound)
+
+
+def assert_cache_equal(port_cache, ref_cache, fma_c=None):
+    """Every leaf byte-exact. ``fma_c=(c_k, c_v)``: the zero-points of a
+    compiled reference may differ by its FMA (``assert_zero_fma_close``)."""
+    got = dict(_flat(layer_cache_to_numpy(port_cache)))
+    want = dict(_flat(ref_cache_arrays(ref_cache)))
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g = got[name]
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if fma_c is not None and name in ("k.zero", "v.zero"):
+            c = fma_c[0] if name == "k.zero" else fma_c[1]
+            assert_zero_fma_close(g, w, got[name[0] + ".scale"], c)
+        else:
+            np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8),
+                                          err_msg=name)
