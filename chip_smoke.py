@@ -16,15 +16,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      flushed before each run, median of 20) beside the plain version, the
      byte bound and scaled_dot_product_attention over the dequantized bf16
      K/V (the uncompressed yardstick; the port never calls it).
-  3. serve - llama2-7b at full width (32 layers, random bf16 weights from a
+  3. kernel_paged - the page-indexed kernel (K5) on the same calibrated
+     caches scattered into a page pool under a shuffled page table, at
+     page sizes 256 and 512 (two tiles a page): against its plain version
+     (same tolerances), bitwise against K2 on the gathered dense view, and
+     bitwise against itself; timed as K2 is, with the byte bound counting
+     the page-table reads too.
+  4. serve - llama2-7b at full width (32 layers, random bf16 weights from a
      seeded torch.Generator) through Engine + SlotServer: policy packkv,
-     capacity 2048, 4 slots, decode_chunk 8, backend "fused"; 6 requests of
-     prompt lengths {320, 700, 1000, 450, 260, 900} and 160 new tokens each
-     (every row flushes its residual, slots are reused). The launch count
-     must equal n_layers x decode steps; outputs must be finite and in the
+     capacity 2048, 4 slots, decode_chunk 8, backend "fused", dense
+     storage, monolithic admission; 6 requests of prompt lengths {320,
+     700, 1000, 450, 260, 900} and 160 new tokens each (every row flushes
+     its residual, slots are reused). K2's launch count must equal
+     n_layers x decode steps; outputs must be finite and in the
      vocabulary. Reports decode tok/s, compressed bytes per token against
      bf16, and each request's agreement with the port's own B=1 generate
      (not a pass bar: batched and B=1 GEMMs may round differently).
+  5. serve_paged - the same model and requests through the reference's
+     paged serving path: a pool of 14 pages of 256 tokens (the first four
+     requests reserve all 14, so the sixth blocks on pages while a slot
+     is free), chunked admission (one page per step). K5's launch count must equal
+     n_layers x decode steps and K2's must be 0; admission must block at
+     least once; reserved pages stay within the pool; every retired row's
+     counters equal the host mirror (the flush rule). Reports decode
+     tok/s, each request's agreement with the dense phase's tokens,
+     chunked against monolithic admission (logits and cache bytes) for
+     every prompt (dense) and the 1000-token one (paged), and the wall
+     time per step of steady decode launches, dense and paged in turns.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
@@ -187,16 +205,133 @@ def phase_kernel(engine, device) -> dict:
     return main
 
 
+def to_pool(cache, page_size: int, gen):
+    """The dense cache's pages scattered into a pool of exactly
+    B * L / page_size pages under a shuffled page table."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import cache as tc
+
+    B, h_kv, L = cache.k.scale.shape
+    cfg = dataclasses.replace(cache.cfg, paged=True, page_size=page_size)
+    paged = tc.alloc_layer_cache(cfg, B, h_kv, cache.k.spec.head_dim, L,
+                                 device=cache.n_comp.device)
+    n_pages = L // page_size
+    phys = torch.randperm(B * n_pages, generator=gen, device=gen.device)
+    phys = phys.to(torch.int32).reshape(B, n_pages)
+    for pool, dense in ((paged.k, cache.k), (paged.v, cache.v)):
+        tc._scatter_pages_tiered(pool, dense, phys)
+        pool.chan_perm.copy_(dense.chan_perm)
+    paged.pages.page_table.copy_(phys)
+    paged.n_comp.copy_(cache.n_comp)
+    return paged
+
+
+def phase_kernel_paged(engine, device) -> dict:
+    import torch
+
+    from repro_torch.core import cache as tc
+    from repro_torch.core.tiered import dequantize_tiered
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+        fused_packed_attention_paged_torch,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+    B, h_kv, G, D, L = 4, 32, 1, 128, 2048
+    lengths = (0, 64, 1344, 2048)
+    cfg = tc.PackKVConfig(k_spec_static=ks, v_spec_static=vs)
+    cache = tc.alloc_layer_cache(cfg, B, h_kv, D, L, device=device)
+    for r, n in enumerate(lengths):
+        if n:
+            tc.insert_prefill(cache, r, kv_like(gen, h_kv, n, D, device),
+                              kv_like(gen, h_kv, n, D, device))
+    q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
+    sm = D ** -0.5
+    n = cache.n_comp
+    kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2).contiguous()
+    vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2).contiguous()
+    qb = q.to(torch.bfloat16)[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    main = None
+    for page in (256, 512):
+        paged = to_pool(cache, page, gen)
+        args = (q, paged.k, paged.v, paged.pages.page_table, n, L, sm)
+        k5 = lambda: fused_packed_attention_paged(*args, page_size=page)
+        got, again = k5(), k5()
+        view = tc.gather_paged(paged)
+        k2 = fused_packed_attention(q, view.k, view.v, n, sm)
+        torch.cuda.synchronize()
+        want = fused_packed_attention_paged_torch(*args, page_size=page)
+        err = 0.0
+        for g, a, d, w in zip(got, again, k2, want):
+            check(torch.equal(g, a), f"page {page}: two K5 launches differ")
+            check(torch.equal(g, d), f"page {page}: K5 != K2 on the gathered view")
+            err = max(err, float((g - w).abs().max()))
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, w, **TOL)
+        norm = lambda o, l: o / torch.clamp(l, min=1e-30)[..., None]
+        torch.testing.assert_close(norm(got[0], got[2]), norm(want[0], want[2]), **TOL)
+        check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()),
+              "the empty row's partials are not zero / -1e30")
+        ms = time_ms(k5, flush)
+        plain_ms = time_ms(
+            lambda: fused_packed_attention_paged_torch(*args, page_size=page), flush)
+        library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
+        n_rows = list(lengths)
+        table_bytes = sum(-(-x // page) for x in n_rows) * 4
+        nbytes = kernel_bytes(cache, n_rows, G) + table_bytes
+        flops = kernel_flops(cache, n_rows, G)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        row = {"phase": "kernel_paged", "page_size": page, "B": B, "H_kv": h_kv,
+               "G": G, "D": D, "n_tokens": L, "n_comp": list(lengths),
+               "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+               "max_abs_err": err, "bitwise_repeat": True,
+               "bitwise_equal_k2_gathered": True, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bytes": nbytes,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        emit(row)
+        if main is None:
+            main = row
+        del paged, view
+    return main
+
+
+def cache_tensors(x):
+    """Every tensor of a cache (dataclasses, lists, tuples), in order."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from cache_tensors(getattr(x, f.name))
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from cache_tensors(v)
+
+
 def phase_serve(engine, cfg, device) -> dict:
     import numpy as np
     import torch
 
     from repro_torch.core.tiered import tiered_bits_per_value
-    from repro_torch.kernels.packed_attention import fused_packed_attention
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
     from repro_torch.serving import Request, SlotServer
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in (320, 700, 1000, 450, 260, 900)]
+    prompts = serve_prompts(cfg)
     server = SlotServer(engine)
     for i, p in enumerate(prompts):
         server.submit(Request(rid=i, tokens=p, max_new=160))
@@ -204,7 +339,7 @@ def phase_serve(engine, cfg, device) -> dict:
     retired, free_slot = [], engine.free_slot
     engine.free_slot = lambda cache, slot: (
         retired.append(int(cache[0].n_comp[slot])), free_slot(cache, slot))[1]
-    fused_packed_attention.launches = 0
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
     t0 = time.perf_counter()
     done = {r.rid: r for r in server.run()}
     torch.cuda.synchronize()
@@ -214,6 +349,7 @@ def phase_serve(engine, cfg, device) -> dict:
     check(len(done) == len(prompts), "not every request finished")
     check(launches > 0 and launches == cfg.n_layers * s.decode_steps,
           f"fused launches {launches} != {cfg.n_layers} x {s.decode_steps} steps")
+    check(fused_packed_attention_paged.launches == 0, "dense serving launched K5")
     for r in done.values():
         out = np.asarray(r.output)
         check(out.shape == (160,) and (out >= 0).all() and (out < cfg.vocab).all(),
@@ -247,7 +383,8 @@ def phase_serve(engine, cfg, device) -> dict:
            "d_model": cfg.d_model, "requests": len(prompts), "max_new": 160,
            "max_batch": engine.ecfg.max_batch, "capacity": engine.ecfg.capacity,
            "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
-           "decode_steps": s.decode_steps, "fused_launches": launches,
+           "decode_steps": s.decode_steps, "decode_launches": s.chunk_launches,
+           "fused_launches": launches,
            "launches_per_step": launches / s.decode_steps,
            "slot_reuses": s.slot_reuses, "occupancy": s.occupancy,
            "wall_s": wall, "decode_s": s.decode_s,
@@ -258,6 +395,150 @@ def phase_serve(engine, cfg, device) -> dict:
            "compression_ratio": bf16_bytes / comp_bytes,
            "agreement_with_b1_generate": agree}
     emit(row)
+    return {"launches": launches, "want_n_comp": want,
+            "compressed_bytes_per_token": comp_bytes,
+            "outputs": {rid: np.asarray(r.output) for rid, r in done.items()}}
+
+
+def serve_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab, n) for n in (320, 700, 1000, 450, 260, 900)]
+
+
+def chunk_vs_mono(engine, tokens) -> dict:
+    """One prompt admitted by the monolithic insert and by 256-token
+    chunks: their last-token logits and row bytes."""
+    import torch
+
+    mono = engine.alloc_slot_cache()
+    l_mono, mono = engine.insert_request(mono, 0, tokens)
+    chunked = engine.alloc_slot_cache()
+    S = len(tokens)
+    bounds = list(range(0, S, 256)) + [S]
+    scratch = engine.chunk_init(S)
+    for s0, s1 in zip(bounds[:-2], bounds[1:-1]):
+        _, scratch = engine.chunk_step(scratch, tokens[s0:s1], s0)
+    l_chunk, chunked = engine.chunk_final(chunked, 0, scratch,
+                                          tokens[bounds[-2]:], bounds[-2])
+    same = all(torch.equal(a, b) for a, b in
+               zip(cache_tensors(mono), cache_tensors(chunked)))
+    return {"chunks": len(bounds) - 1,
+            "logits_max_abs_diff": float((l_mono - l_chunk).abs().max()),
+            "argmax_equal": int(l_mono.argmax()) == int(l_chunk.argmax()),
+            "cache_bytes_equal": same}
+
+
+def steady_step_ms(engines: dict, cfg, launches: int = 4) -> dict:
+    """Wall milliseconds per decode step of steady launches (4 rows of 700
+    tokens, 8 steps a launch, no flush in the window), the engines taken
+    in turns A, B, B, A in this one process (host time varies between
+    processes and machines)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 700) for _ in range(4)]
+    state = {}
+    for name, eng in engines.items():
+        cache = eng.alloc_slot_cache()
+        toks = []
+        for i, p in enumerate(prompts):
+            logits, cache = eng.insert_request(cache, i, p)
+            toks.append(int(torch.argmax(logits)))
+        state[name] = [cache, np.asarray(toks, np.int32)[:, None]]
+    names = list(engines)
+    out = {n: [] for n in names}
+    for name in names + names[::-1]:
+        eng, st = engines[name], state[name]
+        n_bucket = eng.bucket_for(700 + (launches + 1) * 8)
+        run = lambda: eng.decode_chunk(st[0], st[1], [True] * 4, 8, None, n_bucket)
+        toks, _, st[0] = run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            toks, _, st[0] = run()
+            st[1] = toks[-1][:, None]
+        torch.cuda.synchronize()
+        out[name].append((time.perf_counter() - t0) * 1e3 / (8 * launches))
+    return out
+
+
+def phase_serve_paged(engine, cfg, dense: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    pool_pages = 14
+    paged = Engine(cfg, engine.params, engine.pack_cfg,
+                   EngineConfig(capacity=2048, max_batch=4, decode_chunk=8,
+                                backend="fused", device=engine.ecfg.device, calibrate=False,
+                                paged=True, page_size=256, pool_pages=pool_pages,
+                                prefill_chunk_pages=1))
+    prompts = serve_prompts(cfg)
+    server = SlotServer(paged)
+    for i, p in enumerate(prompts):
+        server.submit(Request(rid=i, tokens=p, max_new=160))
+    # at each retirement: the host counter mirror and the device counters
+    mirror, retire = [], server._retire_slot
+
+    def retire_and_record(i):
+        c = server.cache[0]
+        mirror.append((server._counters(server.slots[i]),
+                       (int(c.n_comp[i]), int(c.n_resid[i]))))
+        return retire(i)
+
+    server._retire_slot = retire_and_record
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    t0 = time.perf_counter()
+    done = {r.rid: r for r in server.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_packed_attention_paged.launches
+    s = server.stats
+    check(len(done) == len(prompts), "not every request finished")
+    check(launches > 0 and launches == cfg.n_layers * s.decode_steps,
+          f"K5 launches {launches} != {cfg.n_layers} x {s.decode_steps} steps")
+    check(fused_packed_attention.launches == 0, "paged serving launched K2")
+    check(s.admission_blocks >= 1, "admission never blocked on pages")
+    check(s.pages_reserved_peak <= pool_pages - paged.ecfg.page_watermark,
+          f"reserved {s.pages_reserved_peak} of {pool_pages} pages")
+    check(s.prefill_chunks > 0, "no chunked admission ran")
+    check(all(m == d for m, d in mirror), f"counters differ from the mirror: {mirror}")
+    check(sorted(m[0][0] for m in mirror) == sorted(dense["want_n_comp"]),
+          f"compressed lengths {mirror} != {dense['want_n_comp']}")
+    agree = []
+    for rid, r in sorted(done.items()):
+        out = np.asarray(r.output)
+        check(out.shape == (160,) and (out >= 0).all() and (out < cfg.vocab).all(),
+              f"request {rid}: output out of the vocabulary")
+        same = out == dense["outputs"][rid]
+        prefix = int(np.argmin(same)) if not same.all() else len(out)
+        agree.append({"rid": rid, "rate": float(same.mean()), "prefix": prefix})
+    probe = {"dense": [dict(prompt=len(p), **chunk_vs_mono(engine, p)) for p in prompts],
+             "paged": [dict(prompt=len(prompts[2]), **chunk_vs_mono(paged, prompts[2]))]}
+    steady = steady_step_ms({"dense": engine, "paged": paged}, cfg)
+    decode_tokens = s.tokens_out - s.admitted
+    emit({"phase": "serve_paged", "arch": cfg.name, "page_size": 256,
+          "pool_pages": pool_pages, "prefill_chunk_pages": 1,
+          "decode_steps": s.decode_steps, "decode_launches": s.chunk_launches,
+          "k5_launches": launches,
+          "launches_per_step": launches / s.decode_steps,
+          "admission_blocks": s.admission_blocks,
+          "pages_reserved_peak": s.pages_reserved_peak,
+          "prefill_chunks": s.prefill_chunks, "slot_reuses": s.slot_reuses,
+          "occupancy": s.occupancy, "wall_s": wall, "decode_s": s.decode_s,
+          "decode_tok_s": decode_tokens / s.decode_s,
+          "tok_s_with_prefill": s.tokens_out / wall,
+          "compressed_bytes_per_token": dense["compressed_bytes_per_token"],
+          "agreement_with_dense_phase": agree, "chunked_vs_monolithic": probe,
+          "steady_ms_per_step": steady})
     return {"launches": launches}
 
 
@@ -303,7 +584,8 @@ def main() -> int:
     params = get_model(cfg).init(gen, cfg)
     engine = Engine(cfg, params, get_policy("packkv"),
                     EngineConfig(capacity=2048, max_batch=4, decode_chunk=8,
-                                 backend="fused", device="cuda"))
+                                 backend="fused", device="cuda",
+                                 prefill_chunk_pages=0))
     emit({"phase": "engine", "seconds": time.perf_counter() - t0,
           "params": cfg.param_count(),
           "k_spec": [engine.pack_cfg.k_spec_static.widths,
@@ -311,16 +593,24 @@ def main() -> int:
           "v_spec": [engine.pack_cfg.v_spec_static.widths,
                      engine.pack_cfg.v_spec_static.counts]})
 
-    k = phase_kernel(engine, device)
+    k2 = phase_kernel(engine, device)
+    k5 = phase_kernel_paged(engine, device)
     serve = phase_serve(engine, cfg, device)
+    serve_paged = phase_serve_paged(engine, cfg, serve)
     print(card, flush=True)
-    emit({"kernels": [{
-        "name": "fused_packed_attention", "route": "cuda",
+    row = lambda name, replaces, k, launches: {
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/packed_attention.cu",
-        "replaces": "src/repro/kernels/packed_attention.py:172",
-        "launches": serve["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]})
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"]}
+    emit({"kernels": [
+        row("fused_packed_attention", "src/repro/kernels/packed_attention.py:172",
+            k2, serve["launches"]),
+        row("fused_packed_attention_paged",
+            "src/repro/kernels/packed_attention.py:375", k5,
+            serve_paged["launches"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,9 +14,11 @@ A dense ``LayerKVCache`` is given as a nested dict of arrays::
          "chan_perm", "scale", "zero"} or None,
    "v": (same) or None,
    "raw_k", "raw_v" (None unless policy 'none'),
-   "resid_k", "resid_v", "n_comp", "n_resid"}
+   "resid_k", "resid_v", "n_comp", "n_resid",
+   "pages": {"page_table", "free", "n_free", "ref"} or None}
 
-with the K and V ``TierSpec``s as (widths, counts, pack_size) tuples.
+with the K and V ``TierSpec``s as (widths, counts, pack_size) tuples. A
+paged cache (``pages`` given, ``cfg.paged``) holds pool-layout leaves.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from .configs.base import ArchConfig
-from .core.cache import LayerKVCache, PackKVConfig
+from .core.cache import LayerKVCache, PackKVConfig, PagePool
 from .core.tiered import TierBuffer, TierSpec, TieredCache
 
 
@@ -74,7 +76,7 @@ def _tiered_from_numpy(d: dict, spec: TierSpec, device) -> TieredCache:
 
 def layer_cache_from_numpy(arrays: dict, cfg: PackKVConfig, k_spec=None,
                            v_spec=None, device="cuda") -> LayerKVCache:
-    """A dense ``LayerKVCache`` from plain arrays (layout in the module
+    """A ``LayerKVCache`` from plain arrays (layout in the module
     docstring). ``k_spec``/``v_spec``: (widths, counts, pack_size) tuples,
     required unless the policy is 'none'; they become the config's static
     specs so the cache and its config agree."""
@@ -86,9 +88,14 @@ def layer_cache_from_numpy(arrays: dict, cfg: PackKVConfig, k_spec=None,
         cfg = dataclasses.replace(cfg, k_spec_static=ks, v_spec_static=vs)
         k = _tiered_from_numpy(arrays["k"], ks, device)
         v = _tiered_from_numpy(arrays["v"], vs, device)
+    pages = None
+    if arrays.get("pages") is not None:
+        pages = PagePool(page_size=cfg.page_size, **{
+            key: tensor_from_numpy(a, device) for key, a in arrays["pages"].items()})
     return LayerKVCache(k=k, v=v, raw_k=get("raw_k"), raw_v=get("raw_v"),
                         resid_k=get("resid_k"), resid_v=get("resid_v"),
-                        n_comp=get("n_comp"), n_resid=get("n_resid"), cfg=cfg)
+                        n_comp=get("n_comp"), n_resid=get("n_resid"), cfg=cfg,
+                        pages=pages)
 
 
 def _tuple(x):
@@ -129,4 +136,7 @@ def layer_cache_to_numpy(cache: LayerKVCache) -> dict:
             "resid_k": tensor_to_numpy(cache.resid_k),
             "resid_v": tensor_to_numpy(cache.resid_v),
             "n_comp": tensor_to_numpy(cache.n_comp),
-            "n_resid": tensor_to_numpy(cache.n_resid)}
+            "n_resid": tensor_to_numpy(cache.n_resid),
+            "pages": None if cache.pages is None else {
+                key: tensor_to_numpy(getattr(cache.pages, key))
+                for key in ("page_table", "free", "n_free", "ref")}}

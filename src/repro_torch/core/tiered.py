@@ -1,4 +1,4 @@
-"""Static-shape tiered packing: the compute-tier cache format, dense half.
+"""Static-shape tiered packing: the compute-tier cache format.
 
 The torch port of ``repro/core/tiered.py`` (normative byte spec:
 ``docs/formats.md``). Channels of each kv-head are bucketed into width
@@ -11,6 +11,11 @@ Layout (channels-major), leading dims ``[B, H_kv]``:
   payload[t] : 32-bit words [..., C_t, L*w_t/32]
   mins[t]    : i8  [..., C_t, L/pack]
   shifts[t]  : u8  [..., C_t, ceil(L/pack/4)]
+
+A PAGE POOL (``alloc_tiered_pool``) has the same leaves with leading dims
+``[H_kv, n_pool_pages]`` and a token axis of one page; ``chan_perm`` stays
+per slot, ``[B, H_kv, D]``. ``gather_tiered_pages`` turns it back into
+the dense layout through a page-table prefix.
 
 PyTorch has no shifts on ``uint32``, so payload words are held as
 ``int32`` with the same bits: packing builds each word in int64 and
@@ -384,6 +389,94 @@ def slice_tiered_prefix(cache: TieredCache, n: int) -> TieredCache:
     return TieredCache(tiers=tiers, chan_perm=cache.chan_perm,
                        scale=cache.scale[..., :n], zero=cache.zero[..., :n],
                        spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# Page pool layout
+# ---------------------------------------------------------------------------
+
+
+def alloc_tiered_pool(batch: int, h_kv: int, n_pool_pages: int,
+                      page_size: int, spec: TierSpec,
+                      device="cuda") -> TieredCache:
+    """Preallocate a PAGE-POOL TieredCache: data leaves lead with
+    ``[H_kv, n_pool_pages]`` and their token axis covers one page;
+    ``chan_perm`` stays per slot ``[batch, H_kv, D]``."""
+    if page_size % (4 * spec.pack_size):
+        raise ValueError(f"page_size {page_size} not a multiple of "
+                         f"4*{spec.pack_size}")
+    P = page_size // spec.pack_size
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
+    tiers = tuple(
+        TierBuffer(
+            payload=z((h_kv, n_pool_pages, c, spec.payload_words(i, page_size)),
+                      torch.int32),
+            mins=z((h_kv, n_pool_pages, c, P), torch.int8),
+            shifts=z((h_kv, n_pool_pages, c, cdiv(P, 4)), torch.uint8),
+            width=w,
+            pack_size=spec.pack_size,
+        )
+        for i, (w, c) in enumerate(zip(spec.widths, spec.counts))
+    )
+    D = spec.head_dim
+    perm = torch.arange(D, dtype=torch.int32, device=device)
+    return TieredCache(
+        tiers=tiers,
+        chan_perm=perm.expand(batch, h_kv, D).clone(),
+        scale=torch.ones((h_kv, n_pool_pages, page_size), dtype=torch.float32,
+                         device=device),
+        zero=z((h_kv, n_pool_pages, page_size), torch.float32),
+        spec=spec,
+    )
+
+
+def page_prefix_ids(page_table: torch.Tensor, n_tokens: int,
+                    page_size: int) -> torch.Tensor:
+    """The page-table prefix ``[B, n_tokens // page_size]`` addressing the
+    first ``n_tokens`` (a whole number of pages) of every row."""
+    if n_tokens % page_size:
+        raise ValueError(f"{n_tokens} tokens are not whole pages of {page_size}")
+    return page_table[..., : n_tokens // page_size]
+
+
+def gather_pool_leaf(leaf: torch.Tensor, idx: torch.Tensor,
+                     token_axis: int = -1) -> torch.Tensor:
+    """Gather pool pages into the dense layout along the token axis.
+
+    leaf: ``[H_kv, n_pool_pages, ...]`` whose ``token_axis`` covers one
+    page; idx: int ``[B, k]`` page ids. Returns ``[B, H_kv, ...]`` with the
+    token axis covering ``k`` pages (a copy)."""
+    x = leaf[:, idx.to(torch.int64)]  # [H, B, k, *rest]
+    t = token_axis % leaf.dim() + 1  # the token axis in x
+    rest = range(3, x.dim())
+    perm = [1, 0, *[d for d in rest if d < t], 2, *[d for d in rest if d >= t]]
+    x = x.permute(perm)
+    ta = perm.index(t)
+    return x.reshape(*x.shape[:ta - 1], x.shape[ta - 1] * x.shape[ta],
+                     *x.shape[ta + 1:])
+
+
+def gather_page_meta(leaf: torch.Tensor, page_table: torch.Tensor,
+                     n_tokens: int, page_size: int) -> torch.Tensor:
+    """Per-token metadata (scale / zero, pool ``[H_kv, P, page]``) of the
+    first ``n_tokens`` gathered to the dense ``[B, H_kv, n_tokens]``."""
+    return gather_pool_leaf(leaf, page_prefix_ids(page_table, n_tokens, page_size))
+
+
+def gather_tiered_pages(pool: TieredCache, idx: torch.Tensor) -> TieredCache:
+    """Page-table gather: pool layout -> a dense TieredCache of capacity
+    ``k * page_size`` (idx: int ``[B, k]``) whose live bytes equal a dense
+    cache holding the same tokens."""
+    tiers = tuple(
+        TierBuffer(payload=gather_pool_leaf(t.payload, idx),
+                   mins=gather_pool_leaf(t.mins, idx),
+                   shifts=gather_pool_leaf(t.shifts, idx),
+                   width=t.width, pack_size=t.pack_size)
+        for t in pool.tiers
+    )
+    return TieredCache(tiers=tiers, chan_perm=pool.chan_perm,
+                       scale=gather_pool_leaf(pool.scale, idx),
+                       zero=gather_pool_leaf(pool.zero, idx), spec=pool.spec)
 
 
 def _clamped_start(start: int, size: int, n: int) -> int:

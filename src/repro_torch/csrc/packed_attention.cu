@@ -1,9 +1,12 @@
-// K2: fused decode attention over the dense tier-packed KV cache, for sm_90a.
+// K2 and K5: fused decode attention over the tier-packed KV cache, for
+// sm_90a, in one kernel body templated on how a context tile is addressed.
 //
-// Replaces repro/kernels/packed_attention.py::fused_packed_attention (the
-// Pallas kernel _fused_kernel + _flash_tile_body). One launch per layer per
-// decode step computes, for every (batch row, kv head), the log-sum-exp
-// partials of attention over that row's compressed region:
+// K2 replaces repro/kernels/packed_attention.py::fused_packed_attention
+// (the Pallas kernel _fused_kernel + _flash_tile_body) over the DENSE
+// cache; K5 replaces ::fused_packed_attention_paged (_paged_fused_kernel)
+// over the PAGE POOL. One launch per layer per decode step computes, for
+// every (batch row, kv head), the log-sum-exp partials of attention over
+// that row's compressed region:
 //   scores[g, l] = (q_perm[g] . K_int[:, l] * kscale[l]
 //                   + sum(q[g]) * kzero[l]) * sm_scale,  l < n_comp[b]
 //   m[g], l[g]   = running max / normalizer of exp(scores)
@@ -14,11 +17,27 @@
 // inverse permutation in the epilogue's scatter; the residual-buffer merge
 // happens outside (kernels/ops.py).
 //
+// Addressing. Dense (K2): leaves are [B, H_kv, C, units]; the tile's
+// storage row is batch row b and token l sits at l. Paged (K5): leaves are
+// pools [H_kv, n_pool_pages, C, page units]; a tile never straddles a page
+// (tile_l divides page_size), so each tile resolves its physical page
+// once, phys = page_table[b, t0 / page_size], and token l sits at
+// l % page_size of that page: payload word (l % page) >> log2(32 / w),
+// pack min (l % page) >> log2(pack), shift byte that >> 2 (the
+// pool-layout contract of repro/kernels/pallas_utils.py). The per-token
+// scale / zero are read from the pool [H_kv, P, page] through the same
+// phys, where the reference gathered them dense outside the kernel. The
+// descriptors' "row" strides are the batch stride (dense) or the page
+// stride (paged); everything else is the same code, so K5 on a pool and
+// K2 on its gathered dense view do the same float operations in the same
+// order and give bitwise-equal results.
+//
 // Bound on the H100 SXM: memory. Each live token costs the compressed K
 // and V payload bits, 10 bits of pack metadata per value / pack_size, and
 // 16 bytes of f32 scale/zero per (token, head); the kernel's least time is
 // those bytes over 3.35 TB/s (about 28 MB per layer at llama2-7b with
-// B=4, 1k live tokens and 5 payload bits per value: about 8 us).
+// B=4, 1k live tokens and 5 payload bits per value: about 8 us). K5 reads
+// one page-table entry more per tile.
 //
 // Design (simple first; it is far from that bound):
 //   * one 256-thread block per (b, kv head) row; a loop inside the block
@@ -46,7 +65,8 @@
 #define NWARPS (NTHREADS / 32)
 #define NEG_INF (-1e30f)
 
-// Strides are in elements; every row's last axis is contiguous.
+// Strides are in elements; every row's last axis is contiguous. The "sb"
+// stride steps a batch row (dense) or a pool page (paged).
 struct TierDesc {
   const int32_t* payload;
   const int8_t* mins;
@@ -78,7 +98,9 @@ struct PackedAttnParams {
   float* out;             // [B, H, Dv] contiguous, original channel order
   float* m_out;           // [B, H]
   float* l_out;           // [B, H]
-  int64_t B, Hkv, G, D, Dv, L, log2_pack, tile_l;
+  const int32_t* page_table;  // paged: [B, max_pages], row stride pt_sb
+  int64_t pt_sb, page_size;
+  int64_t B, Hkv, G, D, Dv, L, log2_pack, tile_l;  // paged: L = n_tokens
   double sm_scale;
 };
 
@@ -111,6 +133,7 @@ __device__ __forceinline__ void block_reduce(const float (&v)[MAX_G], int G,
   __syncthreads();
 }
 
+template <bool PAGED>
 __global__ void __launch_bounds__(NTHREADS)
     packed_attention_kernel(const PackedAttnParams p) {
   __shared__ float s_q[MAX_G][MAX_D];     // q permuted by K's chan_perm
@@ -145,28 +168,18 @@ __global__ void __launch_bounds__(NTHREADS)
 
   int n = p.n_comp[b];
   n = n < 0 ? 0 : (n > p.L ? static_cast<int>(p.L) : n);
-  const float* kscale = p.kscale + b * p.kscale_sb + h * p.kscale_sh;
-  const float* kzero = p.kzero + b * p.kzero_sb + h * p.kzero_sh;
-  const float* vscale = p.vscale + b * p.vscale_sb + h * p.vscale_sh;
-  const float* vzero = p.vzero + b * p.vzero_sb + h * p.vzero_sh;
 
-  // this thread's V channel (tier order): its tier, row pointers, width
-  const int32_t* v_pay = nullptr;
-  const int8_t* v_min = nullptr;
-  const uint8_t* v_sft = nullptr;
-  int v_lw = 0;
+  // this thread's V channel (tier order): its tier and row within it
+  int v_t = -1, v_c = 0;
   {
     int off = 0;
     for (int t = 0; t < p.nv; ++t) {
-      const TierDesc& d = p.v[t];
       const int c = tid - off;
-      if (c >= 0 && c < d.count) {
-        v_pay = d.payload + b * d.pay_sb + h * d.pay_sh + c * d.pay_sc;
-        v_min = d.mins + b * d.min_sb + h * d.min_sh + c * d.min_sc;
-        v_sft = d.shifts + b * d.sft_sb + h * d.sft_sh + c * d.sft_sc;
-        v_lw = static_cast<int>(d.log2_w);
+      if (c >= 0 && c < p.v[t].count) {
+        v_t = t;
+        v_c = c;
       }
-      off += static_cast<int>(d.count);
+      off += static_cast<int>(p.v[t].count);
     }
   }
   const int lp = static_cast<int>(p.log2_pack);
@@ -176,7 +189,16 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();
 
   for (int t0 = 0; t0 < n; t0 += TL) {
-    const int l = t0 + tid;
+    // the tile's storage row s (batch row, or the physical page) and the
+    // tile's first token within it
+    int64_t s = b;
+    int lt0 = t0;
+    if (PAGED) {
+      s = p.page_table[b * p.pt_sb + t0 / p.page_size];
+      lt0 = static_cast<int>(t0 % p.page_size);
+    }
+    const int l = t0 + tid;  // the token's position in the row
+    const int ll = lt0 + tid;  // ... and in its storage row
     const bool valid = tid < TL && l < n;
     float sc[MAX_G];
 #pragma unroll
@@ -188,21 +210,22 @@ __global__ void __launch_bounds__(NTHREADS)
       int off = 0;
       for (int t = 0; t < p.nk; ++t) {
         const TierDesc& d = p.k[t];
-        const int32_t* pay = d.payload + b * d.pay_sb + h * d.pay_sh;
-        const int8_t* mn = d.mins + b * d.min_sb + h * d.min_sh;
-        const uint8_t* sf = d.shifts + b * d.sft_sb + h * d.sft_sh;
+        const int32_t* pay = d.payload + s * d.pay_sb + h * d.pay_sh;
+        const int8_t* mn = d.mins + s * d.min_sb + h * d.min_sh;
+        const uint8_t* sf = d.shifts + s * d.sft_sb + h * d.sft_sh;
         const int lw = static_cast<int>(d.log2_w);
 #pragma unroll 4
         for (int c = 0; c < d.count; ++c) {
           const float x = static_cast<float>(decode_tier_value(
-              pay + c * d.pay_sc, mn + c * d.min_sc, sf + c * d.sft_sc, lw, lp, l));
+              pay + c * d.pay_sc, mn + c * d.min_sc, sf + c * d.sft_sc, lw, lp, ll));
 #pragma unroll
           for (int g = 0; g < MAX_G; ++g)
             if (g < G) si[g] = fmaf(s_q[g][off + c], x, si[g]);
         }
         off += static_cast<int>(d.count);
       }
-      const float ks = kscale[l], kz = kzero[l];
+      const float ks = p.kscale[s * p.kscale_sb + h * p.kscale_sh + ll];
+      const float kz = p.kzero[s * p.kzero_sb + h * p.kzero_sh + ll];
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g)
         if (g < G) sc[g] = (si[g] * ks + s_qsum[g] * kz) * sm;
@@ -216,7 +239,8 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     __syncthreads();
     float pr[MAX_G], pz[MAX_G];
-    const float vs = valid ? vscale[l] : 0.f, vz = valid ? vzero[l] : 0.f;
+    const float vs = valid ? p.vscale[s * p.vscale_sb + h * p.vscale_sh + ll] : 0.f;
+    const float vz = valid ? p.vzero[s * p.vzero_sb + h * p.vzero_sh + ll] : 0.f;
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) {
       pr[g] = (valid && g < G) ? expf(sc[g] - s_m[g]) : 0.f;
@@ -230,14 +254,19 @@ __global__ void __launch_bounds__(NTHREADS)
       s_z[tid] = s_z[tid] * s_alpha[tid] + s_zsum[tid];
     }
     // V: this thread's channel over the tile's live tokens
-    if (v_pay != nullptr) {
+    if (v_t >= 0) {
+      const TierDesc& d = p.v[v_t];
+      const int32_t* v_pay = d.payload + s * d.pay_sb + h * d.pay_sh + v_c * d.pay_sc;
+      const int8_t* v_min = d.mins + s * d.min_sb + h * d.min_sh + v_c * d.min_sc;
+      const uint8_t* v_sft = d.shifts + s * d.sft_sb + h * d.sft_sh + v_c * d.sft_sc;
+      const int v_lw = static_cast<int>(d.log2_w);
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) acc[g] *= s_alpha[g];
       const int nl = min(TL, n - t0);
 #pragma unroll 4
       for (int j = 0; j < nl; ++j) {
         const float x = static_cast<float>(
-            decode_tier_value(v_pay, v_min, v_sft, v_lw, lp, t0 + j));
+            decode_tier_value(v_pay, v_min, v_sft, v_lw, lp, lt0 + j));
 #pragma unroll
         for (int g = 0; g < MAX_G; ++g)
           if (g < G) acc[g] = fmaf(s_w[g][j], x, acc[g]);
@@ -248,7 +277,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   // epilogue: zero-term, V inverse permutation (scatter), partials
   const int64_t row = static_cast<int64_t>(b) * p.Hkv + h;
-  if (v_pay != nullptr && tid < Dv) {
+  if (v_t >= 0 && tid < Dv) {
     const int32_t* vperm = p.vperm + b * p.vperm_sb + h * p.vperm_sh;
     const int orig = vperm[tid];
 #pragma unroll
@@ -261,14 +290,25 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+template <bool PAGED>
+static int launch(const PackedAttnParams* p, void* stream) {
+  const dim3 grid(static_cast<unsigned>(p->B * p->Hkv));
+  packed_attention_kernel<PAGED>
+      <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int packed_attention_params_size() {
   return static_cast<int>(sizeof(PackedAttnParams));
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). The
+// Launch on `stream`; return cudaGetLastError() (0 on success). The
 // caller checks shapes, types and strides (kernels/packed_attention.py).
 extern "C" int packed_attention_launch(const PackedAttnParams* p, void* stream) {
-  const dim3 grid(static_cast<unsigned>(p->B * p->Hkv));
-  packed_attention_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(p, stream);  // K2: dense leaves
+}
+
+extern "C" int packed_attention_paged_launch(const PackedAttnParams* p,
+                                             void* stream) {
+  return launch<true>(p, stream);  // K5: pool leaves + page table
 }

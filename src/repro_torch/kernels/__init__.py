@@ -5,4 +5,5 @@ from .ops import (  # noqa: F401
     dense_decode_attention,
     merge_partials,
     packed_decode_attention,
+    paged_decode_attention,
 )

@@ -1,12 +1,14 @@
 """Decode-attention entry points over the compressed cache, with backends.
 
-The torch port of ``repro/kernels/ops.py`` (dense storage). Backends:
+The torch port of ``repro/kernels/ops.py`` (dense and paged storage).
+Backends:
 
   * ``"ref"``   - the plain oracle math of ``kernels/ref.py`` (the
     reference's ``"xla"`` backend);
   * ``"fused"`` - the single-launch fused kernel (the reference's
-    ``"pallas"`` backend): ``fused_packed_attention`` for the compressed
-    region, merged with the residual buffer's partials by log-sum-exp.
+    ``"pallas"`` backend): ``fused_packed_attention`` (K2; paged:
+    ``fused_packed_attention_paged``, K5) for the compressed region,
+    merged with the residual buffer's partials by log-sum-exp.
 
 ``packed_qk_scores`` / ``packed_weighted_v`` (the standalone Fig. 8 /
 Fig. 11 kernels) arrive with their kernels.
@@ -15,9 +17,10 @@ from __future__ import annotations
 
 import torch
 
+from ..core.cache import gather_paged
 from ..core.tiered import TieredCache
 from . import ref
-from .packed_attention import fused_packed_attention
+from .packed_attention import fused_packed_attention, fused_packed_attention_paged
 
 NEG_INF = ref.NEG_INF
 BACKENDS = ("ref", "fused")
@@ -61,6 +64,30 @@ def packed_decode_attention(q, kc: TieredCache, vc: TieredCache, resid_k,
     o_c, m_c, l_c = fused_packed_attention(q, kc, vc, n_comp, sm_scale,
                                            tile_l=tile_l)
     o_r, m_r, l_r = _residual_partials(q, resid_k, resid_v, n_resid, sm_scale)
+    return merge_partials(o_c, m_c, l_c, o_r, m_r, l_r)
+
+
+def paged_decode_attention(q, cache, sm_scale: float, *,
+                           n_bucket: int | None = None, backend: str = "fused",
+                           tile_l: int = 256):
+    """Full decode attention over a PAGED compressed cache + residual.
+
+    cache: a paged ``core.cache.LayerKVCache`` (compressed policy). The
+    ``ref`` backend gathers the first ``n_bucket`` tokens' pages into the
+    dense layout and runs the oracle; ``fused`` launches K5 on the pool."""
+    n_tokens = cache.capacity if n_bucket is None else min(n_bucket, cache.capacity)
+    if backend == "ref":
+        read = gather_paged(cache, n_tokens)
+        return ref.packed_decode_attention_ref(
+            q, read.k, read.v, read.resid_k, read.resid_v, read.n_comp,
+            read.n_resid, sm_scale)
+    if backend != "fused":
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    o_c, m_c, l_c = fused_packed_attention_paged(
+        q, cache.k, cache.v, cache.pages.page_table, cache.n_comp, n_tokens,
+        sm_scale, page_size=cache.pages.page_size, tile_l=tile_l)
+    o_r, m_r, l_r = _residual_partials(q, cache.resid_k, cache.resid_v,
+                                       cache.n_resid, sm_scale)
     return merge_partials(o_c, m_c, l_c, o_r, m_r, l_r)
 
 

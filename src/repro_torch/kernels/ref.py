@@ -48,6 +48,15 @@ def _unpermute(out: torch.Tensor, chan_perm: torch.Tensor) -> torch.Tensor:
     return torch.gather(out, -1, inv[:, :, None, :].expand_as(out))
 
 
+def _ints(tier, L: int) -> torch.Tensor:
+    """A tier's decoded integers as contiguous f32 [B, Hkv, C_t, L]. Decoding
+    a strided prefix view (a dense bucket) can leave its result strided,
+    and the products below would then sum in another order than over a
+    gathered copy (paged); contiguous operands make the sums depend on the
+    shapes only."""
+    return unpack_tier(tier, L).to(torch.float32).contiguous()
+
+
 def kpack_scores_ref(q: torch.Tensor, kc: TieredCache, sm_scale: float = 1.0
                      ) -> torch.Tensor:
     """Fused K decompress + q.K^T. q: f32 [B, H, D] in ORIGINAL channel
@@ -61,7 +70,7 @@ def kpack_scores_ref(q: torch.Tensor, kc: TieredCache, sm_scale: float = 1.0
                      device=q.device)
     off = 0
     for t, c in zip(kc.tiers, kc.spec.counts):
-        qint = unpack_tier(t, L).to(torch.float32)  # [B, Hkv, C_t, L]
+        qint = _ints(t, L)  # [B, Hkv, C_t, L]
         si = si + torch.einsum("bhgc,bhcl->bhgl", qp[..., off:off + c], qint)
         off += c
     qsum = torch.sum(qg, dim=-1, keepdim=True)
@@ -76,8 +85,7 @@ def vpack_out_ref(w: torch.Tensor, vc: TieredCache) -> torch.Tensor:
     h_kv = vc.scale.shape[-2]
     wg = w.to(torch.float32).reshape(B, h_kv, H // h_kv, L)
     ws = wg * vc.scale[:, :, None, :]
-    parts = [torch.einsum("bhgl,bhcl->bhgc", ws, unpack_tier(t, L).to(torch.float32))
-             for t in vc.tiers]
+    parts = [torch.einsum("bhgl,bhcl->bhgc", ws, _ints(t, L)) for t in vc.tiers]
     out = torch.cat(parts, dim=-1)
     out = out + torch.einsum("bhgl,bhl->bhg", wg, vc.zero)[..., None]
     return _unpermute(out, vc.chan_perm).reshape(B, H, -1)

@@ -2,10 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode
 
-Builds the engine as ``chip_smoke.py``'s serve phase does (llama2-7b at
-full width, random weights, policy packkv, capacity 2048, decode_chunk 8),
-admits ``--batch`` requests of ``--prompt-len`` tokens, runs one decode
-launch as warm-up, then profiles ``--launches`` more. Prints one JSON
+Builds the engine as ``chip_smoke.py``'s serve phases do (llama2-7b at
+full width, random weights, policy packkv, capacity 2048, decode_chunk 8;
+``--paged``: the page pool, ``--page-size`` tokens a page), admits
+``--batch`` requests of ``--prompt-len`` tokens in one step (monolithic
+admission), runs one decode launch as warm-up, then profiles
+``--launches`` more. Prints one JSON
 line: wall and device-busy milliseconds per decode step, the device's
 idle share, and the kernels that took the most device time. On a CPU
 (``--smoke --device cpu``) it profiles the host only.
@@ -35,13 +37,17 @@ def main(argv=None) -> int:
     ap.add_argument("--launches", type=int, default=2)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--paged", action="store_true")
+    ap.add_argument("--page-size", type=int, default=256)
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=args.device).manual_seed(0)
     engine = Engine(cfg, get_model(cfg).init(gen, cfg), get_policy("packkv"),
                     EngineConfig(capacity=args.capacity, max_batch=args.batch,
-                                 decode_chunk=8, device=args.device))
+                                 decode_chunk=8, device=args.device,
+                                 prefill_chunk_pages=0, paged=args.paged,
+                                 page_size=args.page_size))
     server = SlotServer(engine)
     rng = np.random.default_rng(0)
     for i in range(args.batch):
@@ -70,7 +76,7 @@ def main(argv=None) -> int:
     rows = sorted(((us, name, n) for name, (us, n) in kernels.items()), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     out = {
-        "arch": cfg.name, "device": args.device,
+        "arch": cfg.name, "device": args.device, "paged": args.paged,
         "name": torch.cuda.get_device_name(0) if cuda else "cpu",
         "batch": args.batch, "prompt_len": args.prompt_len,
         "decode_steps": steps, "wall_ms_per_step": wall * 1e3 / steps,

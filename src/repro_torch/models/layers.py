@@ -118,6 +118,56 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.cat(outs, dim=3).reshape(B, Hq, S, Dh)
 
 
+def resume_attention(q, k_all, v_all, n_ctx: int, *, causal: bool = True,
+                     window: int = 0, kv_chunk: int = 1024,
+                     sm_scale: float | None = None) -> torch.Tensor:
+    """Chunk-resumable flash attention: queries at absolute positions
+    ``n_ctx + arange(Sc)`` over a key scratch of which only the first
+    ``n_ctx + Sc`` keys are written (later ones are masked causally, as a
+    not-yet-reached key is in the monolithic pass).
+
+    q: [B, Hq, Sc, Dh]; k_all, v_all: [B, Hkv, T, Dh] -> [B, Hq, Sc, Dh].
+    Mirrors ``flash_attention``'s kv loop op for op (kv tiles of
+    ``min(kv_chunk, T)``, the same einsums, masking and merge order, the
+    same skip of tiles wholly above the causal diagonal), so with the
+    monolithic pass's kv tiling each query row's output depends on the
+    same keys in the same order as there.
+    """
+    B, Hq, Sc, Dh = q.shape
+    Hkv, T = k_all.shape[1], k_all.shape[2]
+    G = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(Dh)
+    kc = min(kv_chunk, T)
+    if T % kc:
+        raise ValueError(f"key length {T} must be a multiple of {kc}")
+    qg = q.reshape(B, Hkv, G, Sc, Dh).to(torch.float32)
+    kf, vf = k_all.to(torch.float32), v_all.to(torch.float32)
+    qpos = n_ctx + torch.arange(Sc, device=q.device)
+    m = torch.full((B, Hkv, G, Sc), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((B, Hkv, G, Sc, Dh), dtype=torch.float32, device=q.device)
+    for k0 in range(0, T, kc):
+        if causal and k0 > n_ctx + Sc - 1:
+            continue
+        kpos = torch.arange(k0, k0 + kc, device=q.device)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf[:, :, k0:k0 + kc]) * scale
+        mask = torch.ones((Sc, kc), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if window:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        s = torch.where(mask, s, NEG_INF)
+        m_n = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_n)
+        p = torch.where(mask, torch.exp(s - m_n[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p, vf[:, :, k0:k0 + kc])
+        m = m_n
+    out = (o / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+    return out.reshape(B, Hq, Sc, Dh)
+
+
 # ---------------------------------------------------------------------------
 # attention / MLP blocks
 # ---------------------------------------------------------------------------

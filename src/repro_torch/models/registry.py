@@ -15,6 +15,13 @@ ModelApi:
   decode_multi(params, cfg, cache, token, active, n_steps, eos_id,
                t_max=..., backend=..., n_bucket=...)
       -> (tokens [t_max, B], n_exec, cache)
+  prefill_chunk_init(cfg, pack_cfg, capacity, prompt_len=..., device=...)
+      -> scratch
+  prefill_chunk(params, cfg, pack_cfg, scratch, tokens, n_ctx=...)
+      -> (last_logits [1, V], scratch)
+  prefill_chunk_insert(cfg, pack_cfg, capacity, cache, slot, scratch)
+      -> cache with row ``slot`` replaced
+  supports_paged: the decode state is page-addressable (paged storage)
 Caches are updated in place and returned.
 """
 from __future__ import annotations
@@ -36,6 +43,10 @@ class ModelApi:
     reset_slot: Callable
     mask_free: Callable
     decode_multi: Callable
+    prefill_chunk_init: Callable
+    prefill_chunk: Callable
+    prefill_chunk_insert: Callable
+    supports_paged: bool
 
 
 def _transformer_api() -> ModelApi:
@@ -48,6 +59,10 @@ def _transformer_api() -> ModelApi:
         reset_slot=transformer.reset_cache_slot,
         mask_free=transformer.mask_free,
         decode_multi=transformer.decode_steps,
+        prefill_chunk_init=transformer.prefill_chunk_init,
+        prefill_chunk=transformer.prefill_chunk,
+        prefill_chunk_insert=transformer.prefill_chunk_insert,
+        supports_paged=True,
     )
 
 

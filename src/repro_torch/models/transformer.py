@@ -1,8 +1,9 @@
 """Dense transformer family (llama-style), serving half.
 
-The torch port of the dense serving path of ``repro/models/transformer.py``:
+The torch port of the serving path of ``repro/models/transformer.py``:
 prefill with the reference's tiled flash attention, compress-as-you-prefill
-into the PackKV cache, and per-token decode over the compressed cache
+into the PackKV cache (dense or paged storage), chunked admission
+(``prefill_chunk*``), and per-token decode over the compressed cache
 through ``kernels.ops``. Parameters are a dict whose per-layer tensors are
 stacked on a leading ``n_layers`` axis, as the reference's are; the cache
 is a list of ``LayerKVCache``, one per layer, updated IN PLACE (the
@@ -20,17 +21,25 @@ from ..core.cache import (
     append_token,
     flush_rows,
     insert_row,
+    insert_row_paged,
     mask_free_slots,
+    paged_mini_spec,
     prefill_cache,
     reset_slot,
     slice_compressed,
 )
-from ..kernels import dense_decode_attention, packed_decode_attention
+from ..kernels import (
+    dense_decode_attention,
+    packed_decode_attention,
+    paged_decode_attention,
+)
+from ..utils import round_up
 from .layers import (
     dense_init,
     flash_attention,
     mlp_apply,
     qkv_proj,
+    resume_attention,
     rmsnorm,
 )
 
@@ -132,20 +141,108 @@ def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
     return _head(params, h), cache
 
 
+def _insert_rows(cache: list[LayerKVCache], slot: int,
+                 rows: list[LayerKVCache], n_pages: int | None) -> None:
+    """Write each layer's B=1 dense row into row ``slot`` (paged: into
+    ``n_pages`` fresh pages), IN PLACE."""
+    for dst, src in zip(cache, rows):
+        if dst.pages is not None:
+            insert_row_paged(dst, slot, src, n_pages)
+        else:
+            insert_row(dst, slot, src)
+
+
 def prefill_into_slot(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
                       capacity: int, cache: list[LayerKVCache], slot: int,
                       batch: dict):
     """Admit ONE request (batch["tokens"]: [1, S], true length) into row
     ``slot`` of every layer's cache, IN PLACE; other rows are untouched.
-    Returns (last-token logits [1, V], cache)."""
-    logits, row = prefill(params, cfg, pack_cfg, capacity, batch)
-    for dst, src in zip(cache, row):
-        insert_row(dst, slot, src)
+    Returns (last-token logits [1, V], cache).
+
+    A paged cache admits through a DENSE mini-cache sized to the prompt
+    (the same compression math, so the same bytes), scattered into freshly
+    popped pages: the slot holds ``ceil(prompt_blocks / page_size)``
+    pages, not ``capacity`` tokens."""
+    n_pages = None
+    if pack_cfg.paged:
+        pack_cfg, capacity, n_pages = paged_mini_spec(pack_cfg,
+                                                      batch["tokens"].shape[-1])
+    logits, rows = prefill(params, cfg, pack_cfg, capacity, batch)
+    _insert_rows(cache, slot, rows, n_pages)
     return logits, cache
 
 
+# ---------------------------------------------------------------------------
+# chunked admission
+# ---------------------------------------------------------------------------
+
+
+def prefill_chunk_init(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
+                       *, prompt_len: int, device="cuda") -> dict:
+    """Scratch of a chunked admission: raw bf16 K/V of the whole prompt,
+    ``[n_layers, 1, H_kv, prompt_len, hd]`` each. Chunks write their keys
+    in place and attend over it through ``resume_attention``; compression
+    waits for ``prefill_chunk_insert``, so calibration sees exactly the
+    bytes the monolithic ``prefill`` would."""
+    z = lambda: torch.zeros((cfg.n_layers, 1, cfg.n_kv_heads, prompt_len, cfg.hd),
+                            dtype=torch.bfloat16, device=device)
+    return {"k": z(), "v": z()}
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
+                  scratch: dict, tokens: torch.Tensor, *, n_ctx: int):
+    """One bounded chunk of a chunked admission. tokens: int [1, Sc] at
+    positions ``n_ctx + arange(Sc)``. Writes the chunk's K/V into the
+    scratch IN PLACE; returns (last-token logits [1, V], scratch). Only the
+    final chunk's logits are meaningful.
+
+    Attention reads the scratch's first ``T`` keys, ``T`` rounded up to
+    the monolithic pass's kv tile (``min(1024, prompt_len)``), so every
+    query row sees the tiling ``flash_attention`` gives it over the whole
+    prompt (the reference cut ``T`` to the chunk's end)."""
+    tokens = tokens.to(torch.int64)
+    h = params["embed"][tokens]
+    B, Sc, _ = h.shape
+    positions = n_ctx + torch.arange(Sc, device=h.device)
+    S = scratch["k"].shape[-2]
+    T = min(S, round_up(n_ctx + Sc, min(1024, S)))
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        q, k, v = qkv_proj(p["attn"], rmsnorm(h, p["ln1"]), cfg.n_heads,
+                           cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
+                           cfg.use_rope)
+        ks, vs = scratch["k"][i], scratch["v"][i]
+        ks[:, :, n_ctx:n_ctx + Sc] = k
+        vs[:, :, n_ctx:n_ctx + Sc] = v
+        attn = resume_attention(q, ks[:, :, :T], vs[:, :, :T], n_ctx,
+                                causal=cfg.causal, window=cfg.window)
+        attn = attn.transpose(1, 2).reshape(B, Sc, cfg.n_heads * cfg.hd)
+        h = h + attn.to(h.dtype) @ p["attn"]["wo"]
+        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+    return _head(params, h), scratch
+
+
+def prefill_chunk_insert(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
+                         cache: list[LayerKVCache], slot: int, scratch: dict):
+    """Finish a chunked admission: compress the accumulated prompt K/V as
+    the monolithic ``prefill`` does (the same ``prefill_cache`` over the
+    same bytes) and write the row into ``slot``, IN PLACE; a paged cache
+    goes through ``prefill_into_slot``'s mini-cache route."""
+    n_pages = None
+    if pack_cfg.paged:
+        pack_cfg, capacity, n_pages = paged_mini_spec(pack_cfg,
+                                                      scratch["k"].shape[-2])
+    dev = scratch["k"].device
+    rows = [prefill_cache(alloc_layer_cache(pack_cfg, 1, cfg.n_kv_heads, cfg.hd,
+                                            capacity, device=dev), k, v)
+            for k, v in zip(scratch["k"], scratch["v"])]
+    _insert_rows(cache, slot, rows, n_pages)
+    return cache
+
+
 def reset_cache_slot(cache: list[LayerKVCache], slot: int):
-    """Free row ``slot`` of every layer (counters to zero), IN PLACE."""
+    """Free row ``slot`` of every layer (counters to zero; a paged row
+    releases its pages), IN PLACE."""
     for layer in cache:
         reset_slot(layer, slot)
     return cache
@@ -182,12 +279,18 @@ def decode_step(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
                            cfg.use_rope)
         qd = q[:, :, 0]
         layer = append_token(cache[i], k, v, rows)
-        read = slice_compressed(layer, n_bucket)
         if layer.cfg.policy == "none":
+            read = slice_compressed(layer, n_bucket)
             attn = dense_decode_attention(
                 qd, read.raw_k, read.raw_v, read.resid_k, read.resid_v,
                 read.n_comp, read.n_resid, sm_scale)
+        elif layer.pages is not None and backend == "fused":
+            # K5: tiles resolve their page in-kernel, no gathered copy
+            attn = paged_decode_attention(qd, layer, sm_scale,
+                                          n_bucket=n_bucket, backend=backend)
         else:
+            # dense: a prefix view; paged + ref: the page-table gather
+            read = slice_compressed(layer, n_bucket)
             attn = packed_decode_attention(
                 qd, read.k, read.v, read.resid_k, read.resid_v, read.n_comp,
                 read.n_resid, sm_scale, backend=backend)

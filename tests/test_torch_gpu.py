@@ -15,6 +15,8 @@ from repro_torch.core import cache as tc
 from repro_torch.core import tiered as tt
 from repro_torch.kernels.packed_attention import (
     fused_packed_attention,
+    fused_packed_attention_paged,
+    fused_packed_attention_paged_torch,
     fused_packed_attention_torch,
 )
 
@@ -64,6 +66,58 @@ def test_cuda_kernel_matches_plain(cuda, widths, counts, pack, G):
             torch.testing.assert_close(g, w, **TOL)
 
 
+def _to_pool(cache, page, gen):
+    """The dense cache's pages scattered into a pool of B * L / page pages
+    under a shuffled page table."""
+    import dataclasses
+
+    B, h_kv, L = cache.k.scale.shape
+    cfg = dataclasses.replace(cache.cfg, paged=True, page_size=page)
+    paged = tc.alloc_layer_cache(cfg, B, h_kv, cache.k.spec.head_dim, L,
+                                 device=cache.n_comp.device)
+    phys = torch.randperm(B * (L // page), generator=gen, device=gen.device)
+    phys = phys.to(torch.int32).reshape(B, L // page)
+    for pool, dense in ((paged.k, cache.k), (paged.v, cache.v)):
+        tc._scatter_pages_tiered(pool, dense, phys)
+        pool.chan_perm.copy_(dense.chan_perm)
+    paged.pages.page_table.copy_(phys)
+    paged.n_comp.copy_(cache.n_comp)
+    return paged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [256, 512])
+@pytest.mark.parametrize("widths,counts,pack,G", [
+    ((4,), (128,), 8, 1),
+    ((1, 2, 4, 8), (32, 32, 32, 32), 8, 4),
+])
+def test_paged_kernel_matches_plain_and_k2(cuda, page, widths, counts, pack, G):
+    """K5 over a shuffled page table and ragged rows (one empty): within
+    tolerance of its plain version, bitwise equal to K2 on the gathered
+    dense view, bitwise equal to itself."""
+    gen = torch.Generator(device=cuda).manual_seed(page)
+    spec = tt.TierSpec(widths, counts, pack)
+    cache = _random_cache(gen, 4, 4, 128, 1024, spec, (1024, 0, 300, 700), cuda)
+    q = torch.randn((4, 4 * G, 128), generator=gen, device=cuda)
+    paged = _to_pool(cache, page, gen)
+    for n_tok in (1024, 512):
+        n = torch.clamp(cache.n_comp, max=n_tok)
+        args = (q, paged.k, paged.v, paged.pages.page_table, n, n_tok, 0.1)
+        before = fused_packed_attention_paged.launches
+        got = fused_packed_attention_paged(*args, page_size=page)
+        again = fused_packed_attention_paged(*args, page_size=page)
+        view = tc.gather_paged(paged, n_tok)
+        k2 = fused_packed_attention(q, view.k, view.v, n, 0.1)
+        torch.cuda.synchronize()
+        assert fused_packed_attention_paged.launches == before + 2
+        want = fused_packed_attention_paged_torch(*args, page_size=page)
+        for g, a, d, w in zip(got, again, k2, want):
+            assert torch.equal(g, a) and torch.equal(g, d)
+            torch.testing.assert_close(g, w, **TOL)
+        o, m, l = got
+        assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
+
+
 @pytest.mark.gpu
 def test_smoke_engine_fused_equals_ref_on_cuda(cuda):
     """The serving path on the card: the fused kernel backend and the
@@ -92,3 +146,36 @@ def test_smoke_engine_fused_equals_ref_on_cuda(cuda):
     agree = np.mean([np.mean(np.equal(outs["fused"][i], outs["ref"][i]))
                      for i in outs["ref"]])
     assert agree > 0.5, outs  # float order differs; near-ties may flip
+
+
+@pytest.mark.gpu
+def test_smoke_engine_paged_serves_through_k5(cuda):
+    """Paged, chunked serving on the card: every decode step launches K5
+    once per layer and K2 never, and the tokens match dense serving but
+    for near-ties."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    cfg = get_arch("llama2-7b", smoke=True)
+    params = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    outs = {}
+    for paged in (False, True):
+        eng = Engine(cfg, params, tc.PackKVConfig(),
+                     EngineConfig(capacity=512, max_batch=2, paged=paged,
+                                  page_size=256, pool_pages=3 if paged else None,
+                                  debug_invariants=True))
+        server = SlotServer(eng)
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((300, 130, 70)):
+            server.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab, n),
+                                  max_new=100))
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        outs[paged] = {r.rid: list(r.output) for r in server.run()}
+        steps = server.stats.decode_steps
+        want = (0, cfg.n_layers * steps) if paged else (cfg.n_layers * steps, 0)
+        assert (fused_packed_attention.launches,
+                fused_packed_attention_paged.launches) == want
+    agree = np.mean([np.mean(np.equal(outs[True][i], outs[False][i]))
+                     for i in outs[False]])
+    assert agree > 0.5, outs

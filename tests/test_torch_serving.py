@@ -204,13 +204,6 @@ def test_per_token_launches_equal_chunked_launches(smoke):
     assert outs[0] == outs[1]
 
 
-def test_chunked_admission_is_not_ported(smoke):
-    _, _, tcfg, tparams = smoke
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tcfg, tparams, PackKVConfig(),
-               EngineConfig(device="cpu", prefill_chunk_pages=1))
-
-
 def test_serve_cli_on_cpu(capsys):
     from repro_torch.launch.serve import main
 

@@ -16,7 +16,7 @@ def jit_exact(fn, **kw):
 
 
 def ref_cache_arrays(c) -> dict:
-    """A reference ``LayerKVCache`` (dense) -> the numpy dict of
+    """A reference ``LayerKVCache`` (dense or paged) -> the numpy dict of
     ``repro_torch.convert``."""
     def tiered(tc):
         if tc is None:
@@ -28,10 +28,14 @@ def ref_cache_arrays(c) -> dict:
                 "scale": np.asarray(tc.scale), "zero": np.asarray(tc.zero)}
 
     opt = lambda a: None if a is None else np.asarray(a)
+    pages = getattr(c, "pages", None)
     return {"k": tiered(c.k), "v": tiered(c.v), "raw_k": opt(c.raw_k),
             "raw_v": opt(c.raw_v), "resid_k": np.asarray(c.resid_k),
             "resid_v": np.asarray(c.resid_v), "n_comp": np.asarray(c.n_comp),
-            "n_resid": np.asarray(c.n_resid)}
+            "n_resid": np.asarray(c.n_resid),
+            "pages": None if pages is None else {
+                key: np.asarray(getattr(pages, key))
+                for key in ("page_table", "free", "n_free", "ref")}}
 
 
 def spec_tuple(spec):
@@ -39,7 +43,7 @@ def spec_tuple(spec):
 
 
 def ref_cache_to_torch(c, pack_cfg, device="cpu"):
-    """Carry a reference dense ``LayerKVCache`` into the port."""
+    """Carry a reference ``LayerKVCache`` into the port."""
     ks = vs = None
     if c.k is not None:
         ks, vs = spec_tuple(c.k.spec), spec_tuple(c.v.spec)
@@ -82,5 +86,5 @@ def assert_cache_equal(port_cache, ref_cache, fma_c=None):
             c = fma_c[0] if name == "k.zero" else fma_c[1]
             assert_zero_fma_close(g, w, got[name[0] + ".scale"], c)
         else:
-            np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8),
-                                          err_msg=name)
+            bits = lambda a: np.atleast_1d(a).view(np.uint8)
+            np.testing.assert_array_equal(bits(g), bits(w), err_msg=name)
