@@ -44,6 +44,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      every prompt (dense) and the 1000-token one (paged), and the wall
      time per step of steady decode launches, dense and paged in turns.
 
+  6. matvec - the tier matvec entry points (packed_qk_scores,
+     packed_weighted_v and their paged forms) and their kernels K3, K4
+     (dense) and K6, K7 (paged), on caches built as in the kernel phase at
+     its specs and shapes: each kernel against its plain version within
+     the f32 bound 2 (n + 2) 2^-24 sum|terms|, two launches bitwise equal,
+     the fused entry points within rtol=1e-5, atol=1e-4 of the ref
+     backend; at the main shape timed (as K2) beside the plain version,
+     the byte bound and torch.bmm over the dequantized bf16 K or V (the
+     uncompressed cuBLAS yardstick; the port never calls it), and the
+     whole entry-point call. Paged half (matvec_paged), pages 256 and 512
+     under a shuffled table: K6 and K7 bitwise equal to K3 and K4 on the
+     dense cache and to themselves, timed likewise. Then the main path
+     (matvec_path): the four entry points called once each with every
+     launch count set to 0 first; each kernel must have launched.
+
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -59,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-4)
+SPIN_CYCLES = 4_000_000  # ~2 ms of the card's clock
 
 
 def emit(obj) -> None:
@@ -72,7 +88,11 @@ def check(cond: bool, msg: str) -> None:
 
 def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` runs, L2 flushed before
-    each (a decode step finds each layer's cache cold)."""
+    each (a decode step finds each layer's cache cold). A spin kernel of
+    ~2 ms queued after the flush keeps the card busy while the host
+    enqueues the run, so the host's time in Python wrappers and dispatch
+    is not counted; a host sync inside ``fn`` (the plain versions' loop
+    bounds) still is."""
     import torch
 
     for _ in range(warmup):
@@ -80,6 +100,7 @@ def time_ms(fn, flush, reps: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -100,23 +121,43 @@ def kv_like(gen, h, n, d, device):
     return x.to(torch.bfloat16)
 
 
+def tier_bytes(spec, n_rows, h_kv: int) -> int:
+    """Bytes of one tensor's tiers over these live counts: payload bits,
+    an int8 min and a 2-bit shift per pack, per channel and kv head."""
+    total = 0
+    for n in n_rows:
+        P = n // spec.pack_size
+        for w, c in zip(spec.widths, spec.counts):
+            total += h_kv * c * (n * w // 8 + P + (P + 3) // 4)
+    return total
+
+
 def kernel_bytes(cache, n_rows, G: int) -> int:
     """Bytes K2 must move for these live counts: compressed payload, pack
     metadata and f32 scale/zero of each live token, the permutations, q
     and the outputs."""
     k, v = cache.k, cache.v
     h_kv, D = k.scale.shape[1], k.spec.head_dim
-    total = 0
-    for n in n_rows:
-        for spec in (k.spec, v.spec):
-            P = n // spec.pack_size
-            for w, c in zip(spec.widths, spec.counts):
-                total += h_kv * c * (n * w // 8 + P + (P + 3) // 4)
-            total += h_kv * n * 8  # scale + zero, f32
+    total = tier_bytes(k.spec, n_rows, h_kv) + tier_bytes(v.spec, n_rows, h_kv)
+    total += sum(n_rows) * h_kv * 2 * 8  # K and V scale + zero, f32
     B = len(n_rows)
     total += B * h_kv * (2 * D * 4)  # chan_perm K and V
     total += B * h_kv * G * (D * 4 + v.spec.head_dim * 4 + 8)  # q, o, m, l
     return total
+
+
+def ragged_cache(ks, vs, B: int, h_kv: int, D: int, L: int, lengths, gen):
+    """A dense compressed cache of capacity L whose row r holds lengths[r]
+    KV-like tokens (0: an empty row)."""
+    from repro_torch.core import cache as tc
+
+    cfg = tc.PackKVConfig(k_spec_static=ks, v_spec_static=vs)
+    cache = tc.alloc_layer_cache(cfg, B, h_kv, D, L, device=gen.device)
+    for r, n in enumerate(lengths):
+        if n:
+            tc.insert_prefill(cache, r, kv_like(gen, h_kv, n, D, gen.device),
+                              kv_like(gen, h_kv, n, D, gen.device))
+    return cache
 
 
 def kernel_flops(cache, n_rows, G: int) -> int:
@@ -125,11 +166,28 @@ def kernel_flops(cache, n_rows, G: int) -> int:
     return sum(n for n in n_rows) * h_kv * G * (2 * D + 2 * Dv + 8)
 
 
+# the kernel phases' decode shapes (name, B, H_kv, G) at D=128 over a
+# 2048-token bucket, with ragged live counts (an empty row among them)
+SHAPES = [("llama2-7b", 4, 32, 1), ("gqa", 4, 8, 4)]
+LENGTHS = (0, 64, 1344, 2048)
+
+
+def kernel_specs(engine) -> dict:
+    """The (K, V) tier specs the kernel phases run: the serving engine's
+    calibrated one, a (1,2,4,8) one and a width-16 one."""
+    from repro_torch.core.tiered import TierSpec
+
+    return {
+        "calibrated": (engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static),
+        "w1248": (TierSpec((1, 2, 4, 8), (32, 32, 32, 32)),) * 2,
+        "w16": (TierSpec((4, 16), (96, 32)),) * 2,
+    }
+
+
 def phase_kernel(engine, device) -> dict:
     import torch
 
-    from repro_torch.core import cache as tc
-    from repro_torch.core.tiered import TierSpec, dequantize_tiered
+    from repro_torch.core.tiered import dequantize_tiered
     from repro_torch.kernels.packed_attention import (
         fused_packed_attention,
         fused_packed_attention_torch,
@@ -138,26 +196,14 @@ def phase_kernel(engine, device) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
-    calibrated = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
-    specs = {
-        "calibrated": calibrated,
-        "w1248": (TierSpec((1, 2, 4, 8), (32, 32, 32, 32)),) * 2,
-        "w16": (TierSpec((4, 16), (96, 32)),) * 2,
-    }
-    shapes = [("llama2-7b", 4, 32, 1), ("gqa", 4, 8, 4)]
-    lengths = (0, 64, 1344, 2048)
+    lengths = LENGTHS
     D, L = 128, 2048
     main = None
-    for sname, (ks, vs) in specs.items():
-        for shape, B, h_kv, G in shapes:
+    for sname, (ks, vs) in kernel_specs(engine).items():
+        for shape, B, h_kv, G in SHAPES:
             if sname != "calibrated" and shape != "llama2-7b":
                 continue
-            cfg = tc.PackKVConfig(k_spec_static=ks, v_spec_static=vs)
-            cache = tc.alloc_layer_cache(cfg, B, h_kv, D, L, device=device)
-            for r, n in enumerate(lengths):
-                if n:
-                    tc.insert_prefill(cache, r, kv_like(gen, h_kv, n, D, device),
-                                      kv_like(gen, h_kv, n, D, device))
+            cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
             q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
             sm = D ** -0.5
             n = cache.n_comp
@@ -245,13 +291,8 @@ def phase_kernel_paged(engine, device) -> dict:
     flush = lambda: flush_buf.zero_()
     ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
     B, h_kv, G, D, L = 4, 32, 1, 128, 2048
-    lengths = (0, 64, 1344, 2048)
-    cfg = tc.PackKVConfig(k_spec_static=ks, v_spec_static=vs)
-    cache = tc.alloc_layer_cache(cfg, B, h_kv, D, L, device=device)
-    for r, n in enumerate(lengths):
-        if n:
-            tc.insert_prefill(cache, r, kv_like(gen, h_kv, n, D, device),
-                              kv_like(gen, h_kv, n, D, device))
+    lengths = LENGTHS
+    cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
     q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
     sm = D ** -0.5
     n = cache.n_comp
@@ -542,6 +583,238 @@ def phase_serve_paged(engine, cfg, dense: dict) -> dict:
     return {"launches": launches}
 
 
+def tier_runs(tc_, flat, sliced: bool):
+    """(tier, its (payload, mins, shifts) through ``flat``, its channel
+    slice of q's head dim if ``sliced`` (K) else None (V, whose w is
+    whole)) for each tier of a TieredCache, in order."""
+    from repro_torch.kernels.ops import _tier_slices
+
+    return [(t, tuple(flat(x) for x in (t.payload, t.mins, t.shifts)),
+             sl if sliced else None) for t, sl in _tier_slices(tc_)]
+
+
+def within_bound(got, want, mag, n: int) -> float:
+    """Max |got - want|, after checking it against 2 (n + 2) 2^-24 mag:
+    two f32 sums of n terms whose absolute values sum to mag."""
+    import torch
+
+    diff = (got - want).abs()
+    check(bool((diff <= 2 * (n + 2) * 2.0 ** -24 * mag + 1e-30).all()),
+          f"kernel and plain version differ past the f32 bound: {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    """The least time on the card: bytes over HBM, operations over f32."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_matvec(engine, device) -> dict:
+    """The tier matvec entry points (K3, K4; paged K6, K7)."""
+    import torch
+
+    from repro_torch.core.tiered import dequantize_tiered, unpack_tier
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.kpack_matvec import (
+        kpack_tier_scores,
+        kpack_tier_scores_paged,
+        kpack_tier_scores_paged_torch,
+        kpack_tier_scores_torch,
+    )
+    from repro_torch.kernels.packed_attention import _rows_to_bh
+    from repro_torch.kernels.vpack_matvec import (
+        vpack_tier_out,
+        vpack_tier_out_paged,
+        vpack_tier_out_paged_torch,
+        vpack_tier_out_torch,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    D, L, sm = 128, 2048, 128 ** -0.5
+    kernels = {}  # name -> the kernels-line numbers of the main shape
+
+    def run_tiers(fn, runs, x, **kw):
+        """One launch per tier, as the ops functions launch them."""
+        return [fn(*leaves, x if sl is None else x[..., sl], width=t.width,
+                   pack_size=t.pack_size, **kw) for t, leaves, sl in runs]
+
+    def held(name, fn, plain, runs, x, mags, n_terms, **kw):
+        """Each tier's launch twice (bitwise equal) and against the plain
+        version within the f32 bound; returns (outputs, max abs err)."""
+        got, again = run_tiers(fn, runs, x, **kw), run_tiers(fn, runs, x, **kw)
+        torch.cuda.synchronize()
+        want = run_tiers(plain, runs, x, **kw)
+        err = 0.0
+        for g, a, w, m, n in zip(got, again, want, mags, n_terms):
+            check(torch.equal(g, a), f"{name}: two launches differ")
+            err = max(err, within_bound(g, w, m, n))
+        return got, err
+
+    for sname, (ks, vs) in kernel_specs(engine).items():
+        for shape, B, h_kv, G in SHAPES:
+            if sname != "calibrated" and shape != "llama2-7b":
+                continue
+            main = sname == "calibrated" and shape == "llama2-7b"
+            cache = ragged_cache(ks, vs, B, h_kv, D, L, LENGTHS, gen)
+            BH = B * h_kv
+            flat = lambda a: a.reshape(BH, *a.shape[2:])
+            q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
+            w = torch.softmax(torch.randn((B, h_kv * G, L), generator=gen,
+                                          device=device), -1)
+            nv = _rows_to_bh(cache.n_comp, B, h_kv, device)
+            qf = ops._perm_q(q, cache.k, BH)
+            ws = w.reshape(BH, G, L) * flat(cache.v.scale)[:, None, :]
+            k_runs = tier_runs(cache.k, flat, True)
+            v_runs = tier_runs(cache.v, flat, False)
+            ints = lambda runs: [unpack_tier(t, L).reshape(BH, -1, L).float().abs()
+                                 for t, _, _ in runs]
+            k_mags = [torch.bmm(qf[..., sl].abs(), i)
+                      for (_, _, sl), i in zip(k_runs, ints(k_runs))]
+            v_mags = [torch.bmm(ws.abs(), i.transpose(1, 2)) for i in ints(v_runs)]
+            k_cs = [t.payload.shape[2] for t, _, _ in k_runs]
+            si, err3 = held("K3", kpack_tier_scores, kpack_tier_scores_torch, k_runs,
+                            qf, k_mags, k_cs, n_valid=nv)
+            vo, err4 = held("K4", vpack_tier_out, vpack_tier_out_torch, v_runs, ws,
+                            v_mags, [L] * len(v_runs), n_valid=nv)
+            # the entry points: fused against the ref backend
+            n = cache.n_comp
+            s_ops = lambda be="fused": ops.packed_qk_scores(q, cache.k, sm, n_valid=n,
+                                                             backend=be)
+            o_ops = lambda be="fused": ops.packed_weighted_v(w, cache.v, n_valid=n,
+                                                              backend=be)
+            torch.testing.assert_close(s_ops(), s_ops("ref"), **TOL)
+            torch.testing.assert_close(o_ops(), o_ops("ref"), **TOL)
+            n_rows = list(LENGTHS)
+            row = {"phase": "matvec", "spec": sname, "shape": shape, "B": B,
+                   "H_kv": h_kv, "G": G, "D": D, "L": L, "n_valid": n_rows,
+                   "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+                   "k3_max_abs_err": err3, "k4_max_abs_err": err4,
+                   "bitwise_repeat": True, "ops_fused_vs_ref": "within rtol 1e-5 atol 1e-4"}
+            if main:
+                # bytes each must move: the live tiers; K3 q and the whole
+                # score bucket, K4 the live weights and its output
+                k3_bytes = (tier_bytes(ks, n_rows, h_kv) + BH * G * D * 4
+                            + BH * G * L * 4 + BH * 4)
+                k4_bytes = (tier_bytes(vs, n_rows, h_kv) + sum(n_rows) * h_kv * G * 4
+                            + BH * G * D * 4 + BH * 4)
+                flops = 2 * sum(n_rows) * h_kv * G * D
+                # yardstick: cuBLAS bmm over the dequantized bf16 rows
+                kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2)
+                vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2)
+                kd, vd = (x.reshape(BH, L, D).contiguous() for x in (kd, vd))
+                qb = q.to(torch.bfloat16).reshape(BH, G, D)
+                wb = w.to(torch.bfloat16).reshape(BH, G, L)
+                lib = {"K3": lambda: torch.bmm(qb, kd.transpose(1, 2)),
+                       "K4": lambda: torch.bmm(wb, vd)}
+                for name, fn, plain, nbytes, entry, err in (
+                        ("K3", kpack_tier_scores, kpack_tier_scores_torch, k3_bytes,
+                         s_ops, err3),
+                        ("K4", vpack_tier_out, vpack_tier_out_torch, k4_bytes, o_ops, err4)):
+                    runs, x = (k_runs, qf) if name == "K3" else (v_runs, ws)
+                    kernels[name] = {
+                        "max_abs_err": err,
+                        "ms": time_ms(lambda: run_tiers(fn, runs, x, n_valid=nv), flush),
+                        "plain_ms": time_ms(lambda: run_tiers(plain, runs, x, n_valid=nv),
+                                            flush),
+                        "library_ms": time_ms(lib[name], flush),
+                        "ops_ms": time_ms(entry, flush), "bytes": nbytes,
+                        **bound(nbytes, flops)}
+                    row.update({f"{name.lower()}_{k}": v for k, v in kernels[name].items()})
+                dense = dict(cache=cache, q=q, w=w, qf=qf, ws=ws, nv=nv, si=si, vo=vo,
+                             lib=lib, flops=flops, k_mags=k_mags, v_mags=v_mags, k_cs=k_cs)
+            emit(row)
+            del cache
+
+    # the paged half at the main shape: the same rows under a shuffled table
+    d = dense
+    cache, q, w, qf, ws, nv = (d[k] for k in ("cache", "q", "w", "qf", "ws", "nv"))
+    B, h_kv = cache.k.scale.shape[:2]
+    BH, G = qf.shape[:2]
+    pools = {}
+    for page in (256, 512):
+        paged = pools[page] = to_pool(cache, page, gen)
+        table = paged.pages.page_table
+        k_runs = tier_runs(paged.k, lambda a: a, True)
+        v_runs = tier_runs(paged.v, lambda a: a, False)
+        k6 = lambda fn=kpack_tier_scores_paged: [
+            fn(*lv, qf[..., sl], table, nv, L, width=t.width, pack_size=t.pack_size,
+               page_size=page) for t, lv, sl in k_runs]
+        k7 = lambda fn=vpack_tier_out_paged: [
+            fn(*lv, ws, table, nv, width=t.width, pack_size=t.pack_size,
+               page_size=page) for t, lv, _ in v_runs]
+        got6, again6, got7, again7 = k6(), k6(), k7(), k7()
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, again, dn, want, mags, n_terms in (
+                ("K6", got6, again6, d["si"], k6(kpack_tier_scores_paged_torch),
+                 d["k_mags"], d["k_cs"]),
+                ("K7", got7, again7, d["vo"], k7(vpack_tier_out_paged_torch),
+                 d["v_mags"], [L] * len(got7))):
+            errs[name] = 0.0
+            for g, a, x, pw, m, n in zip(got, again, dn, want, mags, n_terms):
+                check(torch.equal(g, a), f"page {page}: two {name} launches differ")
+                check(torch.equal(g, x), f"page {page}: {name} differs from the "
+                      "dense kernel on the gathered view")
+                errs[name] = max(errs[name], within_bound(g, pw, m, n))
+        n = cache.n_comp
+        s_ops = lambda be="fused": ops.packed_qk_scores_paged(
+            q, paged.k, paged.pages, L, sm, n_valid=n, backend=be)
+        o_ops = lambda be="fused": ops.packed_weighted_v_paged(
+            w, paged.v, paged.pages, n_valid=n, backend=be)
+        torch.testing.assert_close(s_ops(), s_ops("ref"), **TOL)
+        torch.testing.assert_close(o_ops(), o_ops("ref"), **TOL)
+        check(torch.equal(s_ops(), ops.packed_qk_scores(q, cache.k, sm, n_valid=n))
+              and torch.equal(o_ops(), ops.packed_weighted_v(w, cache.v, n_valid=n)),
+              f"page {page}: paged entry points != dense ones")
+        table_bytes = sum(-(-x // page) for x in LENGTHS) * h_kv * 4
+        row = {"phase": "matvec_paged", "page_size": page, "B": B, "H_kv": h_kv,
+               "G": G, "D": D, "n_tokens": L, "n_valid": list(LENGTHS),
+               "bitwise_repeat": True, "bitwise_equal_dense_gathered": True}
+        for name, fn, plain, entry, base in (
+                ("K6", k6, lambda: k6(kpack_tier_scores_paged_torch), s_ops, "K3"),
+                ("K7", k7, lambda: k7(vpack_tier_out_paged_torch), o_ops, "K4")):
+            nbytes = kernels[base]["bytes"] + table_bytes
+            numbers = {"max_abs_err": errs[name], "ms": time_ms(fn, flush),
+                       "plain_ms": time_ms(plain, flush),
+                       "library_ms": time_ms(d["lib"][base], flush),
+                       "ops_ms": time_ms(entry, flush), "bytes": nbytes,
+                       **bound(nbytes, d["flops"])}
+            if page == 256:
+                kernels[name] = numbers
+            row.update({f"{name.lower()}_{k}": v for k, v in numbers.items()})
+        emit(row)
+
+    # the slice's main path: the four entry points as a user calls them,
+    # at the main shape (paged: pages of 256), counted from zero
+    fns = (kpack_tier_scores, vpack_tier_out, kpack_tier_scores_paged,
+           vpack_tier_out_paged)
+    for f in fns:
+        f.launches = 0
+    paged = pools[256]
+    scores = ops.packed_qk_scores(q, cache.k, sm, n_valid=cache.n_comp)
+    out = ops.packed_weighted_v(torch.softmax(scores, -1), cache.v, n_valid=cache.n_comp)
+    p_scores = ops.packed_qk_scores_paged(q, paged.k, paged.pages, L, sm,
+                                          n_valid=cache.n_comp)
+    p_out = ops.packed_weighted_v_paged(torch.softmax(p_scores, -1), paged.v,
+                                        paged.pages, n_valid=cache.n_comp)
+    torch.cuda.synchronize()
+    counts = dict(zip(("K3", "K4", "K6", "K7"), (f.launches for f in fns)))
+    check(all(c > 0 for c in counts.values()), f"a kernel of the path never ran: {counts}")
+    check(bool(torch.isfinite(out).all() and torch.isfinite(p_out).all())
+          and out.shape == (B, h_kv * G, D), "non-finite or misshapen outputs")
+    check(torch.equal(out, p_out), "paged entry points != dense ones")
+    for name, c in counts.items():
+        kernels[name]["launches"] = c
+    emit({"phase": "matvec_path", "launches": counts,
+          "tiers": [len(cache.k.tiers), len(cache.v.tiers)]})
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -597,20 +870,27 @@ def main() -> int:
     k5 = phase_kernel_paged(engine, device)
     serve = phase_serve(engine, cfg, device)
     serve_paged = phase_serve_paged(engine, cfg, serve)
+    mv = phase_matvec(engine, device)
     print(card, flush=True)
-    row = lambda name, replaces, k, launches: {
-        "name": name, "route": "cuda",
-        "source": "src/repro_torch/csrc/packed_attention.cu",
+    row = lambda name, source, replaces, k, launches: {
+        "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
         "replaces": replaces, "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": k["library_ms"]}
     emit({"kernels": [
-        row("fused_packed_attention", "src/repro/kernels/packed_attention.py:172",
-            k2, serve["launches"]),
-        row("fused_packed_attention_paged",
-            "src/repro/kernels/packed_attention.py:375", k5,
-            serve_paged["launches"])]})
+        row("fused_packed_attention", "packed_attention.cu",
+            "src/repro/kernels/packed_attention.py:172", k2, serve["launches"]),
+        row("fused_packed_attention_paged", "packed_attention.cu",
+            "src/repro/kernels/packed_attention.py:375", k5, serve_paged["launches"]),
+        row("kpack_tier_scores", "tier_matvec.cu",
+            "src/repro/kernels/kpack_matvec.py:69", mv["K3"], mv["K3"]["launches"]),
+        row("vpack_tier_out", "tier_matvec.cu",
+            "src/repro/kernels/vpack_matvec.py:64", mv["K4"], mv["K4"]["launches"]),
+        row("kpack_tier_scores_paged", "tier_matvec.cu",
+            "src/repro/kernels/kpack_matvec.py:154", mv["K6"], mv["K6"]["launches"]),
+        row("vpack_tier_out_paged", "tier_matvec.cu",
+            "src/repro/kernels/vpack_matvec.py:145", mv["K7"], mv["K7"]["launches"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library name -> its translation unit under csrc/
-LIBRARIES = {"packed_attention": "packed_attention.cu"}
+LIBRARIES = {"packed_attention": "packed_attention.cu",
+             "tier_matvec": "tier_matvec.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -29,14 +29,13 @@ MAX_G = 8
 MAX_D = 256
 
 
-def _check_tiling(kc: TieredCache, tile_l: int) -> int:
-    """The reference's tile rules: tile clamped to L, L a multiple of it,
-    the tile a multiple of 4 * pack_size."""
-    L = kc.capacity
+def _check_tiling(L: int, pack_size: int, tile_l: int) -> int:
+    """The reference's tile rules over ``L`` tokens: tile clamped to L, L a
+    multiple of it, the tile a multiple of 4 * pack_size."""
     tile_l = min(tile_l, L)
-    if L % tile_l or tile_l % (kc.spec.pack_size * 4):
+    if L % tile_l or tile_l % (pack_size * 4):
         raise ValueError(f"context {L} / tile {tile_l} break the tiling "
-                         f"rules for pack_size {kc.spec.pack_size}")
+                         f"rules for pack_size {pack_size}")
     return tile_l
 
 
@@ -122,6 +121,20 @@ def _tier_window(t, t0: int, tile_l: int):
             slice(P0, P0 + TP), slice(P0 // 4, (P0 + TP) // 4))
 
 
+def _paged_tile(t, t0: int, tile_l: int, page_table: torch.Tensor,
+                page_size: int):
+    """A pool tier's (payload, mins, shifts) at the tile starting at token
+    ``t0`` of every row, as [B * H_kv, C, ·]: the tile's physical page
+    resolved through ``page_table`` (int32 [B, max_pages]), then the
+    tile's window within that page."""
+    B, h_kv = page_table.shape[0], t.payload.shape[0]
+    phys = page_table[:, t0 // page_size].to(torch.int64)  # [B]
+    w = _tier_window(t, t0 % page_size, tile_l)
+    return tuple(
+        leaf[..., s][:, phys].transpose(0, 1).reshape(B * h_kv, *leaf.shape[2:-1], -1)
+        for leaf, s in zip((t.payload, t.mins, t.shifts), w))
+
+
 def fused_packed_attention_torch(q: torch.Tensor, kc: TieredCache,
                                  vc: TieredCache, n_comp, sm_scale: float,
                                  *, tile_l: int = DEFAULT_TILE_L):
@@ -134,7 +147,7 @@ def fused_packed_attention_torch(q: torch.Tensor, kc: TieredCache,
     B = q.shape[0]
     h_kv = kc.scale.shape[-2]
     L = kc.capacity
-    tile_l = _check_tiling(kc, tile_l)
+    tile_l = _check_tiling(L, kc.spec.pack_size, tile_l)
     flat = lambda a: a.reshape(B * h_kv, *a.shape[2:])
 
     def tier_tile(t, t0):
@@ -147,21 +160,21 @@ def fused_packed_attention_torch(q: torch.Tensor, kc: TieredCache,
                            meta)
 
 
-def _check_paged(kc: TieredCache, page_table, n_tokens: int, page_size: int,
-                 tile_l: int) -> int:
-    """K5's tiling rules: tiles never straddle a page, the launch covers
-    whole pages of the table. Returns the tile."""
+def _check_paged(page_table, n_tokens: int, page_size: int, pack_size: int,
+                 pool_page: int, tile_l: int) -> int:
+    """The paged kernels' tiling rules: tiles never straddle a page, the
+    launch covers whole pages of the table, the pool's pages hold
+    ``pool_page`` tokens. Returns the tile."""
     tile_l = min(tile_l, page_size)
-    if page_size % tile_l or tile_l % (kc.spec.pack_size * 4):
+    if page_size % tile_l or tile_l % (pack_size * 4):
         raise ValueError(f"page {page_size} / tile {tile_l} break the tiling "
-                         f"rules for pack_size {kc.spec.pack_size}")
+                         f"rules for pack_size {pack_size}")
     if n_tokens % page_size or n_tokens // page_size > page_table.shape[-1]:
         raise ValueError(f"{n_tokens} tokens are not whole pages of "
                          f"{page_size} within the table's "
                          f"{page_table.shape[-1]}")
-    if kc.scale.shape[-1] != page_size:
-        raise ValueError(f"pool pages hold {kc.scale.shape[-1]} tokens, "
-                         f"not {page_size}")
+    if pool_page != page_size:
+        raise ValueError(f"pool pages hold {pool_page} tokens, not {page_size}")
     return tile_l
 
 
@@ -177,15 +190,9 @@ def fused_packed_attention_paged_torch(q: torch.Tensor, kc: TieredCache,
     Arguments and results as ``fused_packed_attention_paged``."""
     B = q.shape[0]
     h_kv = kc.scale.shape[0]
-    tile_l = _check_paged(kc, page_table, n_tokens, page_size, tile_l)
-
-    def tier_tile(t, t0):
-        phys = page_table[:, t0 // page_size].to(torch.int64)  # [B]
-        w = _tier_window(t, t0 % page_size, tile_l)
-        return tuple(
-            leaf[..., s][:, phys].transpose(0, 1).reshape(B * h_kv, *leaf.shape[2:-1], -1)
-            for leaf, s in zip((t.payload, t.mins, t.shifts), w))
-
+    tile_l = _check_paged(page_table, n_tokens, page_size, kc.spec.pack_size,
+                          kc.scale.shape[-1], tile_l)
+    tier_tile = lambda t, t0: _paged_tile(t, t0, tile_l, page_table, page_size)
     meta = tuple(gather_page_meta(a, page_table, n_tokens, page_size)
                  .reshape(B * h_kv, n_tokens)
                  for a in (kc.scale, kc.zero, vc.scale, vc.zero))
@@ -370,7 +377,7 @@ def fused_packed_attention(q: torch.Tensor, kc: TieredCache, vc: TieredCache,
     B = q.shape[0]
     h_kv = kc.scale.shape[-2]
     L = kc.capacity
-    tile_l = _check_tiling(kc, tile_l)
+    tile_l = _check_tiling(L, kc.spec.pack_size, tile_l)
     p, keep, out, m, lsum = _params(q, kc, vc, n_comp, sm_scale, L, tile_l,
                                     (B, h_kv), (B, h_kv, L), paged=False)
     lib = _library()
@@ -404,7 +411,8 @@ def fused_packed_attention_paged(q: torch.Tensor, kc: TieredCache,
         return fused_packed_attention_paged_torch(
             q, kc, vc, page_table, n_comp, n_tokens, sm_scale,
             page_size=page_size, tile_l=tile_l)
-    tile_l = _check_paged(kc, page_table, n_tokens, page_size, tile_l)
+    tile_l = _check_paged(page_table, n_tokens, page_size, kc.spec.pack_size,
+                          kc.scale.shape[-1], tile_l)
     B = q.shape[0]
     h_kv, P = kc.scale.shape[:2]
     _check(page_table, "page_table", torch.int32, q.device, 2)

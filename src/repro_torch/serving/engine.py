@@ -420,19 +420,23 @@ class SlotServer:
         if req.max_new < 1:
             raise ValueError(f"request {req.rid}: max_new must be >= 1")
         ecfg, pack = self.engine.ecfg, self.engine.pack_cfg
-        lb = (len(req.tokens) // pack.block) * pack.block
-        if lb > ecfg.capacity:
-            raise ValueError(f"request {req.rid}: block-aligned prompt length "
-                             f"{lb} exceeds compressed capacity {ecfg.capacity}")
-        hi = len(req.tokens) + req.max_new
-        if hi > ecfg.capacity + pack.residual:
-            # past it, a paged row stops flushing and degrades its own
-            # residual, and a dense row overwrites its last block (the
-            # reference rejects it for paged engines only)
-            raise ValueError(
-                f"request {req.rid}: prompt + max_new = {hi} exceeds "
-                f"capacity + residual = {ecfg.capacity + pack.residual}")
+        # Paged engines only, as the reference: a dense row past capacity
+        # overwrites its last block (``append_block`` clamps its start),
+        # and a dense prompt whose whole blocks exceed capacity is refused
+        # by ``prefill_cache`` at its admission step.
         if ecfg.paged:
+            lb = (len(req.tokens) // pack.block) * pack.block
+            if lb > ecfg.capacity:
+                raise ValueError(f"request {req.rid}: block-aligned prompt "
+                                 f"length {lb} exceeds compressed capacity "
+                                 f"{ecfg.capacity}")
+            hi = len(req.tokens) + req.max_new
+            if hi > ecfg.capacity + pack.residual:
+                # past it, a paged row stops flushing and degrades its own
+                # residual
+                raise ValueError(
+                    f"request {req.rid}: prompt + max_new = {hi} exceeds "
+                    f"capacity + residual = {ecfg.capacity + pack.residual}")
             most = pack.pool_pages - ecfg.page_watermark
             if self._pages_needed(req) > most:
                 raise ValueError(f"request {req.rid} needs "

@@ -6,18 +6,33 @@ them there with
 
 This file imports neither JAX nor the reference package, so it runs where
 only PyTorch is installed. Tolerance rtol=1e-5, atol=1e-4 (f32, another
-summation order)."""
+summation order); the tier matvecs (K3, K4, K6, K7) are held within
+``2 (n + 2) 2^-24`` times the sum of their n terms' absolute values, as
+in tests/test_torch_matvec.py."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import cache as tc
 from repro_torch.core import tiered as tt
+from repro_torch.kernels.kpack_matvec import (
+    kpack_tier_scores,
+    kpack_tier_scores_paged,
+    kpack_tier_scores_paged_torch,
+    kpack_tier_scores_torch,
+)
 from repro_torch.kernels.packed_attention import (
+    _rows_to_bh,
     fused_packed_attention,
     fused_packed_attention_paged,
     fused_packed_attention_paged_torch,
     fused_packed_attention_torch,
+)
+from repro_torch.kernels.vpack_matvec import (
+    vpack_tier_out,
+    vpack_tier_out_paged,
+    vpack_tier_out_paged_torch,
+    vpack_tier_out_torch,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -179,3 +194,92 @@ def test_smoke_engine_paged_serves_through_k5(cuda):
     agree = np.mean([np.mean(np.equal(outs[True][i], outs[False][i]))
                      for i in outs[False]])
     assert agree > 0.5, outs
+
+
+def _close_bound(got, want, mag, n: int):
+    """|got - want| <= 2 (n + 2) 2^-24 mag: two f32 sums of n terms."""
+    assert bool(((got - want).abs() <= 2 * (n + 2) * 2.0 ** -24 * mag + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths,counts,pack,G", [
+    ((4,), (128,), 8, 1),
+    ((1, 2, 4, 8), (32, 32, 32, 32), 8, 1),
+    ((4, 16), (96, 32), 16, 1),
+    ((4,), (128,), 8, 4),
+])
+def test_tier_matvec_kernels_match_plain_and_paged(cuda, widths, counts, pack, G):
+    """K3 and K4 per tier over ragged rows (one empty): within the bound
+    of their plain versions and bitwise equal over two launches; K6 and K7
+    on the pages scattered under a shuffled table (pages 256 and 512)
+    bitwise equal to K3 and K4 on the dense cache, and within the bound
+    of their own plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    spec = tt.TierSpec(widths, counts, pack)
+    B, Hkv, L = 4, 4, 1024
+    cache = _random_cache(gen, B, Hkv, 128, L, spec, (1024, 0, 300, 700), cuda)
+    BH = B * Hkv
+    nv = _rows_to_bh(cache.n_comp, B, Hkv, cuda)
+    q = torch.randn((BH, G, 128), generator=gen, device=cuda)
+    w = torch.rand((BH, G, L), generator=gen, device=cuda)
+    flat = lambda a: a.reshape(BH, *a.shape[2:])
+    pools = {page: _to_pool(cache, page, gen) for page in (256, 512)}
+    off = 0
+    for i, (t, c) in enumerate(zip(cache.k.tiers, counts)):
+        leaves = tuple(flat(x) for x in (t.payload, t.mins, t.shifts))
+        qt = q[..., off:off + c]
+        off += c
+        kw = dict(width=t.width, pack_size=pack, n_valid=nv)
+        before = (kpack_tier_scores.launches, vpack_tier_out.launches)
+        s, s2 = (kpack_tier_scores(*leaves, qt, **kw) for _ in range(2))
+        o, o2 = (vpack_tier_out(*leaves, w, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        assert (kpack_tier_scores.launches, vpack_tier_out.launches) == \
+            (before[0] + 2, before[1] + 2)
+        assert torch.equal(s, s2) and torch.equal(o, o2)
+        ints = tt.unpack_tier(t, L).reshape(BH, c, L).to(torch.float32).abs()
+        mag_s = torch.bmm(qt.abs(), ints)
+        mag_o = torch.bmm(w.abs(), ints.transpose(1, 2))
+        _close_bound(s, kpack_tier_scores_torch(*leaves, qt, **kw), mag_s, c)
+        _close_bound(o, vpack_tier_out_torch(*leaves, w, **kw), mag_o, L)
+        assert not s[Hkv:2 * Hkv].any() and not o[Hkv:2 * Hkv].any()  # empty row
+        for page, paged in pools.items():
+            pt = paged.k.tiers[i]
+            pleaves = (pt.payload, pt.mins, pt.shifts)
+            table = paged.pages.page_table
+            pkw = dict(width=t.width, pack_size=pack, page_size=page)
+            ps = kpack_tier_scores_paged(*pleaves, qt, table, nv, L, **pkw)
+            po = vpack_tier_out_paged(*pleaves, w, table, nv, **pkw)
+            ps2 = kpack_tier_scores_paged(*pleaves, qt, table, nv, L, **pkw)
+            torch.cuda.synchronize()
+            assert torch.equal(ps, s) and torch.equal(po, o) and torch.equal(ps, ps2)
+            _close_bound(ps, kpack_tier_scores_paged_torch(*pleaves, qt, table, nv, L, **pkw),
+                         mag_s, c)
+            _close_bound(po, vpack_tier_out_paged_torch(*pleaves, w, table, nv, **pkw),
+                         mag_o, L)
+
+
+@pytest.mark.gpu
+def test_tier_matvec_ops_fused_match_ref_on_cuda(cuda):
+    """The four ops entry points on the card: the fused backend (K3, K4,
+    K6, K7) within rtol 1e-5 / atol 1e-4 of the ref backend (its scores
+    reach ~10 here), and the paged ones bitwise equal to the dense ones."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    spec = tt.TierSpec((2, 4, 8), (32, 64, 32), 8)
+    cache = _random_cache(gen, 3, 4, 128, 1024, spec, (1024, 0, 333), cuda)
+    paged = _to_pool(cache, 256, gen)
+    q = torch.randn((3, 8, 128), generator=gen, device=cuda)
+    w = torch.softmax(torch.randn((3, 8, 1024), generator=gen, device=cuda), -1)
+    nv = cache.n_comp
+    got_s = ops.packed_qk_scores(q, cache.k, 0.1, n_valid=nv)
+    got_o = ops.packed_weighted_v(w, cache.v, n_valid=nv)
+    torch.testing.assert_close(got_s, ops.packed_qk_scores(q, cache.k, 0.1, n_valid=nv,
+                                                           backend="ref"), **TOL)
+    torch.testing.assert_close(got_o, ops.packed_weighted_v(w, cache.v, n_valid=nv,
+                                                            backend="ref"), **TOL)
+    assert torch.equal(ops.packed_qk_scores_paged(q, paged.k, paged.pages, 1024, 0.1,
+                                                  n_valid=nv), got_s)
+    assert torch.equal(ops.packed_weighted_v_paged(w, paged.v, paged.pages, n_valid=nv),
+                       got_o)

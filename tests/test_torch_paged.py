@@ -37,7 +37,14 @@ from repro_torch.kernels.packed_attention import (
     fused_packed_attention_paged_torch,
     fused_packed_attention_torch,
 )
-from torch_port_helpers import assert_cache_equal, jit_exact, ref_cache_to_torch
+from torch_port_helpers import (
+    LOGIT_ATOL,
+    assert_cache_equal,
+    jit_exact,
+    margin,
+    ref_cache_to_torch,
+    steps_before_tie,
+)
 
 torch.set_num_threads(2)
 
@@ -330,7 +337,7 @@ def test_paged_serving_equals_dense(smoke, backend):
         assert int(layer.pages.n_free) == 6 and not layer.pages.ref.any()
 
 
-def _ref_engine(cfg, params, **kw):
+def _ref_engine(cfg, params, pack=None, **kw):
     """The reference engine with every dispatch compiled by EXACT."""
     from repro.serving import Engine as JEngine
     from repro.serving import EngineConfig as JEngineConfig
@@ -342,7 +349,7 @@ def _ref_engine(cfg, params, **kw):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JEngine, "_lane_jit", lane_jit)
-        return JEngine(cfg, params, jc.PackKVConfig(),
+        return JEngine(cfg, params, pack or jc.PackKVConfig(),
                        JEngineConfig(backend="xla", **kw))
 
 
@@ -406,15 +413,99 @@ def test_paged_submit_rejections_match_reference(smoke):
                              EngineConfig(device="cpu", page_watermark=1, **kw)))
     with pytest.raises(ValueError, match="at most 1"):
         held.submit(Request(rid=2, tokens=np.zeros(200, np.int64), max_new=50))
-    # the port's dense engine rejects past capacity + residual too (the
-    # reference's accepts and overwrites the row's last block)
-    dense = SlotServer(Engine(tcfg, tparams, tc.PackKVConfig(),
-                              EngineConfig(device="cpu", capacity=512, calibrate=False)))
-    with pytest.raises(ValueError, match="capacity"):
-        dense.submit(Request(rid=10, tokens=np.zeros(400, np.int64), max_new=300))
     with pytest.raises(ValueError, match="page_size"):
         Engine(tcfg, tparams, tc.PackKVConfig(),
                EngineConfig(device="cpu", capacity=500, paged=True, page_size=128))
+
+
+def _dense_pair(smoke, **kw):
+    """A dense port engine and the reference's, residual 64 (a row then
+    flushes past capacity within a few dozen steps)."""
+    from repro_torch.serving import Engine, EngineConfig
+
+    cfg, jparams, tcfg, tparams = smoke
+    return (Engine(tcfg, tparams, tc.PackKVConfig(residual=64),
+                   EngineConfig(device="cpu", capacity=256, calibrate=False, **kw)),
+            _ref_engine(cfg, jparams, pack=jc.PackKVConfig(residual=64),
+                        capacity=256, calibrate=False, **kw))
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+def test_dense_submit_admission_matches_reference(smoke, chunk):
+    """Dense engines make the reference's admission decisions, monolithic
+    (``chunk`` 0) and chunked. A request past capacity + residual is
+    admitted and served by both: the same tokens until the first near-tie,
+    and at retirement the row's counters equal the reference's and the
+    host mirror's, which does not cap a dense row (its flushes past
+    capacity overwrite the last block). A prompt whose whole blocks
+    exceed capacity raises in both at the same step (the port in
+    ``prefill_cache``)."""
+    from repro.serving import Request as JRequest
+    from repro.serving import SlotServer as JSlotServer
+    from repro_torch.serving import Request, SlotServer
+
+    port_engine, ref_engine = _dense_pair(smoke, max_batch=2, page_size=128,
+                                          prefill_chunk_pages=chunk)
+    toks = np.random.default_rng(0).integers(0, 512, 300)
+    runs = {}
+    for name, srv, cls in (("port", SlotServer(port_engine), Request),
+                           ("ref", JSlotServer(ref_engine), JRequest)):
+        seen, retire = [], srv._retire_slot
+        cache = (lambda s=srv: s.cache[0]) if name == "port" else (
+            lambda s=srv: jax.tree_util.tree_map(lambda a: a[0], s.cache))
+
+        def record(i, *a, srv=srv, seen=seen, retire=retire, cache=cache):
+            c = cache()
+            mirror = srv._counters(srv.slots[i])
+            seen.append(((int(c.n_comp[i]), int(c.n_resid[i])), mirror))
+            return retire(i, *a)
+
+        srv._retire_slot = record
+        srv.submit(cls(rid=0, tokens=toks, max_new=100))  # 400 > 256 + 64
+        done = {r.rid: np.asarray(r.output) for r in srv.run()}
+        runs[name] = (done[0], seen)
+    (out, seen), (ref_out, ref_seen) = runs["port"], runs["ref"]
+    assert len(out) == len(ref_out) == 100
+    assert seen == ref_seen and seen[0][0] == seen[0][1] == (384, 15)
+    _, n = steps_before_tie(port_engine, toks, 100)
+    assert n >= 8, n
+    np.testing.assert_array_equal(out[:n], ref_out[:n])
+
+    steps = {}  # 320 block-aligned prompt tokens > 256
+    for name, srv, cls in (("port", SlotServer(port_engine), Request),
+                           ("ref", JSlotServer(ref_engine), JRequest)):
+        srv.submit(cls(rid=1, tokens=np.concatenate([toks, toks[:20]]), max_new=4))
+        for i in range(8):
+            try:
+                srv.step()
+            except (TypeError, ValueError) as e:  # ref: in dynamic_update_slice
+                steps[name] = (i, type(e).__name__)
+                break
+    assert steps["port"][0] == steps["ref"][0], steps
+    assert steps["port"][1] == "ValueError"
+
+
+def test_dense_over_capacity_decode_matches_reference(smoke):
+    """Teacher-forced decode of a dense row that flushes past capacity
+    (prompt 300 at capacity 256: 256 compressed tokens; the flush at step
+    21 overwrites the last block): logits within LOGIT_ATOL of the
+    reference's at every step, before and after the clamped writes, and
+    equal greedy tokens wherever the reference's margin is clear."""
+    te, je = _dense_pair(smoke, max_batch=1)
+    toks = np.random.default_rng(1).integers(0, 512, (1, 300))
+    jl, jcache = je.prefill({"tokens": jnp.asarray(toks, jnp.int32)})
+    tl, tcache = te.prefill({"tokens": toks})
+    for step in range(48):
+        want, got = np.asarray(jl)[0], tl.numpy()[0]
+        np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_ATOL,
+                                   err_msg=f"step {step}")
+        if margin(want) >= LOGIT_ATOL:
+            assert got.argmax() == want.argmax(), step
+        tok = np.asarray([[want.argmax()]], np.int32)  # both follow the reference
+        jl, jcache = je.decode(jcache, jnp.asarray(tok))
+        tl, tcache = te.decode(tcache, tok)
+    assert tcache[0].n_comp.tolist() == [320]  # one flush past capacity
+    assert np.asarray(jcache.n_comp).ravel().tolist() == [320] * len(tcache)
 
 
 def test_release_with_duplicates_and_sentinels_matches_reference():

@@ -31,12 +31,17 @@ from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.cache import PackKVConfig
 from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
-from torch_port_helpers import EXACT, spec_tuple
+from torch_port_helpers import (
+    EXACT,
+    LOGIT_ATOL,
+    margin,
+    spec_tuple,
+    steps_before_tie,
+)
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
-LOGIT_ATOL = 0.0625
 CAP = 256
 
 
@@ -110,11 +115,6 @@ def test_layers_match_reference():
         tl.flash_attention(*(torch.zeros((1, 1, 1500, 8)) for _ in range(3)))
 
 
-def _margin(logits: np.ndarray) -> float:
-    top = np.sort(logits)[-2:]
-    return float(top[1] - top[0])
-
-
 @pytest.mark.parametrize("policy", ["packkv", "none"])
 def test_logits_and_greedy_tokens_match_reference(smoke, policy):
     """Prefill and 16 decode steps: logits within LOGIT_ATOL, greedy tokens
@@ -128,7 +128,7 @@ def test_logits_and_greedy_tokens_match_reference(smoke, policy):
         want, got = np.asarray(jl)[0], tl.numpy()[0]
         np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_ATOL,
                                    err_msg=f"step {step}")
-        tie = tie or _margin(want) < LOGIT_ATOL
+        tie = tie or margin(want) < LOGIT_ATOL
         if not tie:
             assert got.argmax() == want.argmax(), step
             compared += 1
@@ -143,20 +143,6 @@ def _requests(cls, rng):
     lens, max_new = (127, 90, 191, 127, 60), (80, 30, 70, 20, 75)
     return [cls(rid=i, tokens=rng.integers(0, 512, n), max_new=m)
             for i, (n, m) in enumerate(zip(lens, max_new))]
-
-
-def _steps_before_tie(te, tokens, n) -> tuple[list[int], int]:
-    """The port's B=1 greedy run up to its first near-tie: (tokens so far,
-    number of steps whose top-2 margin is at least LOGIT_ATOL)."""
-    logits, cache = te.prefill({"tokens": tokens[None]})
-    out = []
-    for i in range(n):
-        l = logits.numpy()[0]
-        if _margin(l) < LOGIT_ATOL:
-            return out, i
-        out.append(int(l.argmax()))
-        logits, cache = te.decode(cache, np.asarray([[out[-1]]], np.int32))
-    return out, n
 
 
 def test_slot_server_matches_generate_and_reference(smoke):
@@ -180,7 +166,7 @@ def test_slot_server_matches_generate_and_reference(smoke):
         np.testing.assert_array_equal(out, gen[0], err_msg=f"request {rid}")
         if rid == 0:  # 127 prompt + 79 appends: the residual flushed once
             assert cache[0].n_comp.tolist() == [128]
-        b1, n = _steps_before_tie(te, req.tokens, req.max_new)
+        b1, n = steps_before_tie(te, req.tokens, req.max_new)
         assert b1 == list(out[:n])
         np.testing.assert_array_equal(out[:n], ref[rid][:n], err_msg=f"request {rid}")
         compared.append(n)

@@ -1,6 +1,6 @@
 """Shared helpers of the torch-port tests (tests/test_torch_*.py): run the
 JAX reference compiled without excess precision, carry its caches across
-as numpy, and compare caches leaf by leaf."""
+as numpy, compare caches leaf by leaf, and the greedy margin rule."""
 import jax
 import numpy as np
 
@@ -9,6 +9,29 @@ from repro_torch.convert import layer_cache_from_numpy, layer_cache_to_numpy
 # XLA may keep bf16 intermediates in f32 ("excess precision"); the
 # reference's written math rounds them, so compile without it.
 EXACT = {"xla_allow_excess_precision": False}
+# logits of the smoke model agree within four bf16 ulps at their
+# magnitudes (2..4): bf16 matmuls summed in another order
+LOGIT_ATOL = 0.0625
+
+
+def margin(logits: np.ndarray) -> float:
+    """Top-2 logit margin: under LOGIT_ATOL, rounding may flip the argmax."""
+    top = np.sort(logits)[-2:]
+    return float(top[1] - top[0])
+
+
+def steps_before_tie(engine, tokens, n) -> tuple[list[int], int]:
+    """The port's B=1 greedy run up to its first near-tie: (tokens so far,
+    number of steps whose top-2 margin is at least LOGIT_ATOL)."""
+    logits, cache = engine.prefill({"tokens": tokens[None]})
+    out = []
+    for i in range(n):
+        row = logits.numpy()[0]
+        if margin(row) < LOGIT_ATOL:
+            return out, i
+        out.append(int(row.argmax()))
+        logits, cache = engine.decode(cache, np.asarray([[out[-1]]], np.int32))
+    return out, n
 
 
 def jit_exact(fn, **kw):
