@@ -12,16 +12,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      H_kv=32, G=1, D=128, L=2048, ragged n_comp {0, 64, 1344, 2048}) under
      the serving engine's calibrated spec, a (1,2,4,8) spec and a width-16
      spec, and at a GQA shape (H_kv=8, G=4): m, l and o / l within
-     rtol=1e-5, atol=1e-4 and two launches bitwise equal. Timed with CUDA events (L2
-     flushed before each run, median of 20) beside the plain version, the
-     byte bound and scaled_dot_product_attention over the dequantized bf16
-     K/V (the uncompressed yardstick; the port never calls it).
+     rtol=1e-5, atol=1e-4 of the plain version and of the plain version with
+     the kernel's split structure, the empty row exactly o = 0, m = -1e30,
+     l = 0, two launches bitwise equal, and K2 over a 1024-token bucket view
+     bitwise equal to K2 over the 2048 capacity (counts cut to 1024). Timed
+     with CUDA events (L2 flushed before each run, median of 20) beside the
+     plain version, the byte bound and scaled_dot_product_attention over the
+     dequantized bf16 K/V (the uncompressed yardstick; the port never calls
+     it). Each row also gives the launch: span blocks in the grid and live,
+     shared memory per block, registers per thread (-Xptxas -v).
   3. kernel_paged - the page-indexed kernel (K5) on the same calibrated
      caches scattered into a page pool under a shuffled page table, at
-     page sizes 256 and 512 (two tiles a page): against its plain version
-     (same tolerances), bitwise against K2 on the gathered dense view, and
-     bitwise against itself; timed as K2 is, with the byte bound counting
-     the page-table reads too.
+     page sizes 64, 128, 256 and 512 (a span covers several pages or part
+     of one): against its plain version (same tolerances), bitwise against
+     K2 on the gathered dense view, and bitwise against itself; timed at
+     pages 256 and 512 as K2 is, with the byte bound counting the
+     page-table reads too.
   4. serve - llama2-7b at full width (32 layers, random bf16 weights from a
      seeded torch.Generator) through Engine + SlotServer: policy packkv,
      capacity 2048, 4 slots, decode_chunk 8, backend "fused", dense
@@ -41,8 +47,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      counters equal the host mirror (the flush rule). Reports decode
      tok/s, each request's agreement with the dense phase's tokens,
      chunked against monolithic admission (logits and cache bytes) for
-     every prompt (dense) and the 1000-token one (paged), and the wall
-     time per step of steady decode launches, dense and paged in turns.
+     every prompt (dense) and the 1000-token one (paged), which must be
+     bitwise equal, and the wall time per step of steady decode launches,
+     dense and paged in turns.
 
   6. matvec - the tier matvec entry points (packed_qk_scores,
      packed_weighted_v and their paged forms) and their kernels K3, K4
@@ -184,12 +191,66 @@ def kernel_specs(engine) -> dict:
     }
 
 
+def held_to(got, want) -> None:
+    """K2/K5's partials against a plain version's: m and l as they are, o
+    after dividing by l (the region's attention output): the unnormalized
+    acc and zsum terms reach ~1e2 over 2048 tokens and cancel in acc +
+    zsum, so f32 sums in another order leave ~1e-4 absolute differences
+    on o itself."""
+    import torch
+
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, **TOL)
+    norm = lambda o, l: o / torch.clamp(l, min=1e-30)[..., None]
+    torch.testing.assert_close(norm(got[0], got[2]), norm(want[0], want[2]), **TOL)
+
+
+def ptxas_regs() -> dict:
+    """Registers per thread of each K2/K5 kernel, from the ``-Xptxas -v``
+    log of the packed_attention build: {instantiation: registers}."""
+    import re
+
+    from repro_torch.kernels import build
+
+    names = {"ILb0ELi1E": "span_dense_G1", "ILb1ELi1E": "span_paged_G1",
+             "ILb0ELi4E": "span_dense_G4"}
+    log = build.lib_path("packed_attention").with_suffix(".log")
+    regs, fn = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            for key, name in names.items():
+                if key in fn:
+                    regs[name] = int(m.group(1))
+    return regs
+
+
+def launch_shape(cache, lengths, G: int, L: int, paged: bool) -> dict:
+    """K2/K5's launch: span blocks in the grid, those of live spans (the
+    rest exit at once), dynamic shared memory per block, registers per
+    thread (the span kernel of this storage and group size)."""
+    from repro_torch.kernels.packed_attention import SPAN, kernel_smem_bytes
+
+    h_kv = cache.k.scale.shape[1]  # the dense cache
+    regs = ptxas_regs()
+    key = f"span_{'paged' if paged else 'dense'}_G{G}"
+    return {"blocks": len(lengths) * h_kv * -(-L // SPAN),
+            "live_blocks": h_kv * sum(-(-min(x, L) // SPAN) for x in lengths),
+            "threads": 256, "smem_bytes": kernel_smem_bytes(cache.k, cache.v, G),
+            "regs": regs.get(key)}
+
+
 def phase_kernel(engine, device) -> dict:
     import torch
 
+    from repro_torch.core import cache as tc
     from repro_torch.core.tiered import dequantize_tiered
     from repro_torch.kernels.packed_attention import (
         fused_packed_attention,
+        fused_packed_attention_split_torch,
         fused_packed_attention_torch,
     )
 
@@ -215,14 +276,23 @@ def phase_kernel(engine, device) -> dict:
             for g, a, w in zip(got, again, want):
                 check(torch.equal(g, a), f"{sname}/{shape}: two launches differ")
                 err = max(err, float((g - w).abs().max()))
-            # m and l as they are; o after dividing by l (the region's
-            # attention output): the unnormalized acc and zsum terms reach
-            # ~1e2 over 2048 tokens and cancel in acc + zsum, so f32 sums in
-            # another order leave ~1e-4 absolute differences on o itself
-            for g, w in zip(got[1:], want[1:]):
-                torch.testing.assert_close(g, w, **TOL)
-            norm = lambda o, l: o / torch.clamp(l, min=1e-30)[..., None]
-            torch.testing.assert_close(norm(got[0], got[2]), norm(want[0], want[2]), **TOL)
+            held_to(got, want)
+            check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
+                       and (got[2][0] == 0).all()),
+                  f"{sname}/{shape}: the empty row is not o = 0, m = -1e30, l = 0")
+            # the plain version with the kernel's split structure
+            split = fused_packed_attention_split_torch(q, cache.k, cache.v, n, sm)
+            held_to(got, split)
+            err_split = max(float((g - w).abs().max()) for g, w in zip(got, split))
+            # a 1024-token bucket view == the full 2048 capacity, bitwise,
+            # when every row's count fits the bucket
+            n_half = torch.clamp(n, max=L // 2)
+            view = tc.slice_compressed(cache, L // 2)
+            sliced = fused_packed_attention(q, view.k, view.v, n_half, sm)
+            full = fused_packed_attention(q, cache.k, cache.v, n_half, sm)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(sliced, full)),
+                  f"{sname}/{shape}: K2 over a {L // 2}-token bucket != K2 over {L}")
             ms = time_ms(lambda: fused_packed_attention(q, cache.k, cache.v, n, sm), flush)
             plain_ms = time_ms(
                 lambda: fused_packed_attention_torch(q, cache.k, cache.v, n, sm), flush)
@@ -240,10 +310,13 @@ def phase_kernel(engine, device) -> dict:
             row = {"phase": "kernel", "spec": sname, "shape": shape, "B": B,
                    "H_kv": h_kv, "G": G, "D": D, "L": L, "n_comp": list(lengths),
                    "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
-                   "max_abs_err": err, "bitwise_repeat": True, "ms": ms,
+                   "max_abs_err": err, "max_abs_err_vs_split": err_split,
+                   "bitwise_repeat": True, "bitwise_sliced_eq_full": True, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "x_bound": ms / max(t_bytes, t_ops), "vs_library": ms / library_ms,
+                   **launch_shape(cache, lengths, G, L, paged=False)}
             emit(row)
             if main is None:
                 main = row
@@ -301,7 +374,7 @@ def phase_kernel_paged(engine, device) -> dict:
     qb = q.to(torch.bfloat16)[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     main = None
-    for page in (256, 512):
+    for page in (64, 128, 256, 512):  # timed at 256 and 512
         paged = to_pool(cache, page, gen)
         args = (q, paged.k, paged.v, paged.pages.page_table, n, L, sm)
         k5 = lambda: fused_packed_attention_paged(*args, page_size=page)
@@ -315,31 +388,33 @@ def phase_kernel_paged(engine, device) -> dict:
             check(torch.equal(g, a), f"page {page}: two K5 launches differ")
             check(torch.equal(g, d), f"page {page}: K5 != K2 on the gathered view")
             err = max(err, float((g - w).abs().max()))
-        for g, w in zip(got[1:], want[1:]):
-            torch.testing.assert_close(g, w, **TOL)
-        norm = lambda o, l: o / torch.clamp(l, min=1e-30)[..., None]
-        torch.testing.assert_close(norm(got[0], got[2]), norm(want[0], want[2]), **TOL)
-        check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()),
-              "the empty row's partials are not zero / -1e30")
-        ms = time_ms(k5, flush)
-        plain_ms = time_ms(
-            lambda: fused_packed_attention_paged_torch(*args, page_size=page), flush)
-        library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
-        n_rows = list(lengths)
-        table_bytes = sum(-(-x // page) for x in n_rows) * 4
-        nbytes = kernel_bytes(cache, n_rows, G) + table_bytes
-        flops = kernel_flops(cache, n_rows, G)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        held_to(got, want)
+        check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
+                   and (got[2][0] == 0).all()),
+              "the empty row's partials are not o = 0, m = -1e30, l = 0")
         row = {"phase": "kernel_paged", "page_size": page, "B": B, "H_kv": h_kv,
                "G": G, "D": D, "n_tokens": L, "n_comp": list(lengths),
                "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
                "max_abs_err": err, "bitwise_repeat": True,
-               "bitwise_equal_k2_gathered": True, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bytes": nbytes,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bitwise_equal_k2_gathered": True,
+               **launch_shape(cache, lengths, G, L, paged=True)}
+        if page >= 256:
+            ms = time_ms(k5, flush)
+            plain_ms = time_ms(
+                lambda: fused_packed_attention_paged_torch(*args, page_size=page), flush)
+            library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
+            n_rows = list(lengths)
+            table_bytes = sum(-(-x // page) for x in n_rows) * 4
+            nbytes = kernel_bytes(cache, n_rows, G) + table_bytes
+            flops = kernel_flops(cache, n_rows, G)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+            row.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "x_bound": ms / max(t_bytes, t_ops),
+                        "vs_library": ms / library_ms})
         emit(row)
-        if main is None:
+        if page == 256:
             main = row
         del paged, view
     return main
@@ -564,6 +639,11 @@ def phase_serve_paged(engine, cfg, dense: dict) -> dict:
         agree.append({"rid": rid, "rate": float(same.mean()), "prefix": prefix})
     probe = {"dense": [dict(prompt=len(p), **chunk_vs_mono(engine, p)) for p in prompts],
              "paged": [dict(prompt=len(prompts[2]), **chunk_vs_mono(paged, prompts[2]))]}
+    # chunked == monolithic admission, bitwise (the final chunk's GEMMs run
+    # over a full chunk's rows: prefill_chunk's ``rows``)
+    for r in probe["dense"] + probe["paged"]:
+        check(r["logits_max_abs_diff"] == 0.0 and r["cache_bytes_equal"],
+              f"chunked != monolithic admission: {r}")
     steady = steady_step_ms({"dense": engine, "paged": paged}, cfg)
     decode_tokens = s.tokens_out - s.admitted
     emit({"phase": "serve_paged", "arch": cfg.name, "page_size": 256,

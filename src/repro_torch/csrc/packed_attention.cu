@@ -1,57 +1,82 @@
 // K2 and K5: fused decode attention over the tier-packed KV cache, for
-// sm_90a, in one kernel body templated on how a context tile is addressed.
+// sm_90a, in one kernel body templated on how a run of tokens is addressed.
 //
 // K2 replaces repro/kernels/packed_attention.py::fused_packed_attention
 // (the Pallas kernel _fused_kernel + _flash_tile_body) over the DENSE
 // cache; K5 replaces ::fused_packed_attention_paged (_paged_fused_kernel)
-// over the PAGE POOL. One launch per layer per decode step computes, for
-// every (batch row, kv head), the log-sum-exp partials of attention over
-// that row's compressed region:
+// over the PAGE POOL. One wrapper call per layer per decode step computes,
+// for every (batch row, kv head), the log-sum-exp partials of attention
+// over that row's compressed region:
 //   scores[g, l] = (q_perm[g] . K_int[:, l] * kscale[l]
 //                   + sum(q[g]) * kzero[l]) * sm_scale,  l < n_comp[b]
-//   m[g], l[g]   = running max / normalizer of exp(scores)
+//   m[g], l[g]   = max / normalizer of exp(scores)
 //   acc[g, c]    = sum_l p[g, l] * vscale[l] * V_int[c, l]
 //                  + sum_l p[g, l] * vzero[l]
-// with K_int / V_int decoded from their tiers in registers (unpack.cuh).
-// The K channel permutation is applied to q in the prologue and the V
-// inverse permutation in the epilogue's scatter; the residual-buffer merge
-// happens outside (kernels/ops.py).
+// with K_int / V_int decoded from their tiers (K1, unpack.cuh). The K
+// channel permutation is applied to q in the prologue and the V inverse
+// permutation in the merge's scatter; the residual-buffer merge happens
+// outside (kernels/ops.py).
 //
-// Addressing. Dense (K2): leaves are [B, H_kv, C, units]; the tile's
-// storage row is batch row b and token l sits at l. Paged (K5): leaves are
-// pools [H_kv, n_pool_pages, C, page units]; a tile never straddles a page
-// (tile_l divides page_size), so each tile resolves its physical page
-// once, phys = page_table[b, t0 / page_size], and token l sits at
-// l % page_size of that page: payload word (l % page) >> log2(32 / w),
-// pack min (l % page) >> log2(pack), shift byte that >> 2 (the
-// pool-layout contract of repro/kernels/pallas_utils.py). The per-token
-// scale / zero are read from the pool [H_kv, P, page] through the same
-// phys, where the reference gathered them dense outside the kernel. The
-// descriptors' "row" strides are the batch stride (dense) or the page
-// stride (paged); everything else is the same code, so K5 on a pool and
-// K2 on its gathered dense view do the same float operations in the same
-// order and give bitwise-equal results.
+// Bound on the H100 SXM (3.35 TB/s): memory. Each live (token, kv head)
+// costs the compressed K and V payload bits, an int8 min and a 2-bit shift
+// per pack and channel, and 16 bytes of f32 scale/zero. At llama2-7b decode
+// with the calibrated spec (K and V one 4-bit tier of 128 channels, pack 8)
+// that is 184 bytes: at B=4, 32 kv heads and live counts {0, 64, 1344,
+// 2048} about 20.6 MB, a bound of 6.15 us; at serving's 4 rows of ~1000
+// tokens about 23.5 MB, 7 us. The integer decode and the FMAs (~8 M warp
+// instructions at the first shape, ~9 us of issue on 132 SMs) come close
+// to it, so the kernel needs every SM busy and its loads coalesced.
 //
-// Bound on the H100 SXM: memory. Each live token costs the compressed K
-// and V payload bits, 10 bits of pack metadata per value / pack_size, and
-// 16 bytes of f32 scale/zero per (token, head); the kernel's least time is
-// those bytes over 3.35 TB/s (about 28 MB per layer at llama2-7b with
-// B=4, 1k live tokens and 5 payload bits per value: about 8 us). K5 reads
-// one page-table entry more per tile.
-//
-// Design (simple first; it is far from that bound):
-//   * one 256-thread block per (b, kv head) row; a loop inside the block
-//     walks 256-token context tiles up to the row's n_comp (the TPU's
-//     sequential grid axis becomes the loop, tile skipping its bound);
-//   * scores: one thread per token, integer dot over every K tier;
-//   * V: one thread per channel, sequential over the tile's tokens;
-//   * online-softmax state in shared memory; every sum is an f32 FMA or a
-//     fixed-order warp-shuffle + shared-memory reduction. No atomics, so
-//     two launches give bitwise-identical outputs.
-// Left on the table: no cp.async/TMA staging of tiles in shared memory
-// (the V loop reads each row with a stride), no split of the context over
-// several blocks (B * H_kv blocks must fill 132 SMs alone), and at
-// llama2's G = 1 the work is a GEMV that no tensor core can help.
+// Design. The first version (one block per row, a loop over 256-token
+// tiles, a thread per token walking 128 channels with three dependent
+// global loads each, a thread per V channel walking its row one token at a
+// time, three block reductions per tile) ran 150x its bound: 32 blocks of
+// 2048-token rows set the time on 32 of 132 SMs, and no load was coalesced.
+//   * Split contexts (flash-decoding). The grid is (B * H_kv, ceil(L /
+//     SPAN)); a block owns the SPAN = 256 tokens [s0, s0 + SPAN) of its row
+//     and exits at once if s0 >= n_comp. Each live span writes its partials
+//     (m, l, the zero-term sum z and acc[G, Dv]) to a scratch tensor the
+//     wrapper allocates. The row's last span block to finish (an atomic
+//     counts arrivals; no value is ever accumulated atomically) merges the
+//     row's live spans IN SPAN ORDER (fixed-order LSE merge), adds z and
+//     scatters through the V inverse permutation. An empty row gives o = 0,
+//     m = -1e30, l = 0 exactly. At the first shape above: 15 live spans per
+//     head, 480 blocks instead of 128, all resident at once (4 an SM). A
+//     second merge kernel, even launched as a programmatic dependent,
+//     timed slower.
+//   * Staging. The span's bytes (every K and V tier's payload words, mins
+//     and shift bytes, and the f32 scale/zero) are copied into shared
+//     memory with cp.async, 16 bytes a request where addresses and lengths
+//     allow (a channel row's span is one contiguous run at the calibrated
+//     spec), 8 or 4 below that, bytes for runs of under 4 bytes. K and the
+//     scale/zero form the first commit group; V's copies are issued once K
+//     has landed, before the scores are computed, so they land while K is
+//     used (issued together with K's, the kernel timed slower). ~56 KB a
+//     block at the calibrated spec (4 blocks an SM); a spec whose K and V
+//     do not fit side by side stages V after the scores into K's space. At
+//     the first shape the copies alone take about as long as a torch.sum
+//     over as many contiguous bytes (launch/k2_breakdown.py, PERF.md).
+//   * Decode from shared memory, one 8-token chunk per lane (K1's
+//     decode_tier_run, instantiated per tier width): scores with warp w
+//     over channels w, w + 8, ... and lane j over chunk j, the warps'
+//     partial sums of each token added in warp order; V with the same
+//     split, each lane's chunk sums merged by a fixed shuffle butterfly.
+//     One max and one (l, z) sum reduction per span.
+//   * Paged addressing per run. A span is staged in runs of RUN tokens
+//     (the largest power of two <= SPAN dividing the page size, or the
+//     bucket L when dense), each run resolving page_table[b, l / page] once.
+//     The float operations and their order depend only on token indices
+//     (the span, the chunk, the channel), never on L, the run or the page,
+//     so K5 on a pool is bitwise equal to K2 on the gathered dense view at
+//     every page size, and K2 over a bucket view equals K2 over the full
+//     capacity whenever every n_comp fits the bucket.
+//   Two launches are bitwise equal. The arrival counters ([B * H_kv] int32,
+//   zero between launches: the merging block resets its row's) are shared
+//   by the launches of one device, so launches run on one stream at a time.
+// Left on the table: the loads and the decode of a block run one after the
+// other and every block of the first shape's single wave loads at once, so
+// the decode does not overlap the copies; at llama2's G = 1 the work is a
+// GEMV that no tensor core can help.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -63,6 +88,9 @@
 #define MAX_D 256
 #define NTHREADS 256
 #define NWARPS (NTHREADS / 32)
+#define CHUNK 8            // consecutive tokens per lane
+#define SPAN (32 * CHUNK)  // tokens a block covers, one per thread
+static_assert(SPAN == NTHREADS, "the scores keep one token per thread");
 #define NEG_INF (-1e30f)
 
 // Strides are in elements; every row's last axis is contiguous. The "sb"
@@ -100,210 +128,564 @@ struct PackedAttnParams {
   float* l_out;           // [B, H]
   const int32_t* page_table;  // paged: [B, max_pages], row stride pt_sb
   int64_t pt_sb, page_size;
-  int64_t B, Hkv, G, D, Dv, L, log2_pack, tile_l;  // paged: L = n_tokens
+  int64_t B, Hkv, G, D, Dv, L, log2_pack;  // paged: L = n_tokens
   double sm_scale;
+  float* part;        // scratch [B * H_kv, ceil(L / SPAN), G * (Dv + 3)]
+  int32_t* counters;  // [B * H_kv] span arrivals, zero between launches
 };
 
-// Fixed-order block reduction of G values per thread: butterfly shuffles
-// inside each warp, then warp partials summed in warp order by thread g.
-template <bool IS_MAX>
-__device__ __forceinline__ void block_reduce(const float (&v)[MAX_G], int G,
-                                             float (*s_red)[NWARPS],
-                                             float* s_out) {
+// Byte offsets into the dynamic shared memory, set by the host (layout()).
+struct SmemLayout {
+  int32_t k_pay[MAX_TIERS], k_min[MAX_TIERS], k_sft[MAX_TIERS];
+  int32_t v_pay[MAX_TIERS], v_min[MAX_TIERS], v_sft[MAX_TIERS];
+  int32_t meta;  // f32 [4][SPAN]: kscale, kzero, vscale, vzero
+  int32_t q;     // f32 [G][D], q permuted by K's chan_perm
+  int32_t ws;    // f32 [G][SPAN], p * vscale
+  int32_t part;  // f32 [NWARPS][SPAN], the warps' partial scores
+  int32_t total;
+  int32_t run;      // tokens per staged run
+  int32_t v_early;  // 1: V has its own space, copied before the scores
+};
+
+// ---------------------------------------------------------------------------
+// staging: cp.async into shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async(int lg, void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (lg == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else if (lg == 3)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy the first nb bytes of C rows, row c from src + c * src_stride to
+// dst + c * dst_stride (bytes), with the block's threads together: cp.async
+// in the widest of 16, 8 and 4 bytes that every address, stride and
+// length allows, plain byte copies below 4.
+__device__ __forceinline__ void stage_rows(char* dst, int dst_stride, const char* src,
+                                           int64_t src_stride, int C, int nb) {
+  const uint64_t a = reinterpret_cast<uint64_t>(src) | reinterpret_cast<uint64_t>(dst) |
+                     static_cast<uint64_t>(src_stride) | static_cast<uint64_t>(dst_stride) |
+                     static_cast<uint64_t>(nb);
+  if ((a & 3) == 0) {
+    const int lg = (a & 15) == 0 ? 4 : ((a & 7) == 0 ? 3 : 2);
+    const int per_row = nb >> lg;
+    for (int i = threadIdx.x; i < C * per_row; i += NTHREADS) {
+      const int c = i / per_row, k = (i - c * per_row) << lg;
+      cp_async(lg, dst + c * dst_stride + k, src + c * src_stride + k);
+    }
+  } else {
+    for (int i = threadIdx.x; i < C * nb; i += NTHREADS) {
+      const int c = i / nb, k = i - c * nb;
+      dst[c * dst_stride + k] = static_cast<char>(__ldg(src + c * src_stride + k));
+    }
+  }
+}
+
+// Where token l of batch row b lives: its storage row (batch row, or the
+// physical page) and its offset in that row.
+template <bool PAGED>
+__device__ __forceinline__ void locate(const PackedAttnParams& p, int b, int l,
+                                       int64_t& s, int& ll) {
+  if (PAGED) {
+    s = p.page_table[b * p.pt_sb + l / p.page_size];
+    ll = static_cast<int>(l % p.page_size);
+  } else {
+    s = b;
+    ll = l;
+  }
+}
+
+// Stage one tensor's tiers for the runs of the span from s0 that start
+// below n: payload words, mins and shift bytes of every channel row.
+template <bool PAGED>
+__device__ __forceinline__ void stage_tiers(const PackedAttnParams& p, const TierDesc* d,
+                                            int ntiers, const int32_t* pay_off,
+                                            const int32_t* min_off, const int32_t* sft_off,
+                                            char* smem, int b, int h, int s0, int n, int run) {
+  const int lp = static_cast<int>(p.log2_pack);
+  for (int r0 = 0; r0 < SPAN && s0 + r0 < n; r0 += run) {
+    int64_t s;
+    int ll;
+    locate<PAGED>(p, b, s0 + r0, s, ll);
+    for (int t = 0; t < ntiers; ++t) {
+      const TierDesc& dt = d[t];
+      const int lw = static_cast<int>(dt.log2_w), C = static_cast<int>(dt.count);
+      stage_rows(smem + pay_off[t] + ((r0 << lw) >> 3), (SPAN << lw) >> 3,
+                 reinterpret_cast<const char*>(dt.payload + s * dt.pay_sb + h * dt.pay_sh +
+                                               ((ll << lw) >> 5)),
+                 dt.pay_sc * 4, C, (run << lw) >> 3);
+      stage_rows(smem + min_off[t] + (r0 >> lp), SPAN >> lp,
+                 reinterpret_cast<const char*>(dt.mins + s * dt.min_sb + h * dt.min_sh +
+                                               (ll >> lp)),
+                 dt.min_sc, C, run >> lp);
+      stage_rows(smem + sft_off[t] + (r0 >> (lp + 2)), SPAN >> (lp + 2),
+                 reinterpret_cast<const char*>(dt.shifts + s * dt.sft_sb + h * dt.sft_sh +
+                                               (ll >> (lp + 2))),
+                 dt.sft_sc, C, run >> (lp + 2));
+    }
+  }
+}
+
+// The per-token kscale, kzero, vscale, vzero of the span's live runs.
+template <bool PAGED>
+__device__ __forceinline__ void stage_meta(const PackedAttnParams& p, char* dst, int b,
+                                           int h, int s0, int n, int run) {
+  const float* src[4] = {p.kscale, p.kzero, p.vscale, p.vzero};
+  const int64_t sb[4] = {p.kscale_sb, p.kzero_sb, p.vscale_sb, p.vzero_sb};
+  const int64_t sh[4] = {p.kscale_sh, p.kzero_sh, p.vscale_sh, p.vzero_sh};
+  for (int r0 = 0; r0 < SPAN && s0 + r0 < n; r0 += run) {
+    int64_t s;
+    int ll;
+    locate<PAGED>(p, b, s0 + r0, s, ll);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      stage_rows(dst + (i * SPAN + r0) * 4, 0,
+                 reinterpret_cast<const char*>(src[i] + s * sb[i] + h * sh[i] + ll), 0, 1,
+                 run * 4);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode from shared memory
+// ---------------------------------------------------------------------------
+
+// The words of a lane's 8-token chunk, as one vector load where they span
+// more than one word (widths 8 and 16: 2 and 4 words, aligned).
+template <int NW>
+__device__ __forceinline__ void load_words(const uint32_t* src, uint32_t (&wd)[NW]) {
+  if constexpr (NW == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    wd[0] = v.x, wd[1] = v.y, wd[2] = v.z, wd[3] = v.w;
+  } else if constexpr (NW == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    wd[0] = v.x, wd[1] = v.y;
+  } else {
+    wd[0] = src[0];
+  }
+}
+
+// Channel c's chunk at t0 (a multiple of CHUNK) of one staged tier, decoded.
+template <int LW>
+__device__ __forceinline__ void decode_chunk(const char* pay, const int8_t* mins,
+                                             const uint8_t* sfts, int lp, int c, int t0,
+                                             float (&x)[CHUNK]) {
+  constexpr int NW = (CHUNK << LW) >= 32 ? (CHUNK << LW) / 32 : 1;
+  uint32_t wd[NW];
+  load_words<NW>(reinterpret_cast<const uint32_t*>(pay + c * ((SPAN << LW) >> 3)) +
+                     ((t0 << LW) >> 5),
+                 wd);
+  const int pk = t0 >> lp;
+  const int sh = (sfts[c * (SPAN >> (lp + 2)) + (pk >> 2)] >> ((pk & 3) * 2)) & 3;
+  const int mv = mins[c * (SPAN >> lp) + pk];
+  decode_tier_run<LW, CHUNK>(wd, t0, sh, mv, x);  // K1
+}
+
+// Scores: this lane's chunk at t0 summed over this warp's channels of one
+// tier (warp, warp + NWARPS, ... in order). sq: q of the tier's channels,
+// row stride D.
+template <int LW, int GM>
+__device__ __forceinline__ void k_tier(const char* pay, const int8_t* mins,
+                                       const uint8_t* sfts, int lp, int C, const float* sq,
+                                       int D, int G, int warp, int t0,
+                                       float (&part)[GM][CHUNK]) {
+#pragma unroll 4
+  for (int c = warp; c < C; c += NWARPS) {
+    float x[CHUNK];
+    decode_chunk<LW>(pay, mins, sfts, lp, c, t0, x);
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) {
+        const float qc = sq[g * D + c];
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) part[g][k] = fmaf(qc, x[k], part[g][k]);
+      }
+  }
+}
+
+// V: each of this warp's channels of one tier over the span, lane sums
+// merged by a fixed butterfly; lane 0 writes acc[g][c] to out (row
+// stride Dv).
+template <int LW, int GM>
+__device__ __forceinline__ void v_tier(const char* pay, const int8_t* mins,
+                                       const uint8_t* sfts, int lp, int C,
+                                       const float (&wr)[GM][CHUNK], bool live, int G,
+                                       int lane, int warp, int t0, float* out, int Dv) {
+  for (int c = warp; c < C; c += NWARPS) {
+    float a[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) a[g] = 0.f;
+    if (live) {
+      float x[CHUNK];
+      decode_chunk<LW>(pay, mins, sfts, lp, c, t0, x);
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) a[g] = fmaf(wr[g][k], x[k], a[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) a[g] += __shfl_xor_sync(0xffffffffu, a[g], o);
+    if (lane == 0)
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+        if (g < G) out[g * Dv + c] = a[g];
+  }
+}
+
+#define BY_WIDTH(FN, LWV, ...)                \
+  switch (LWV) {                              \
+    case 0: FN<0, GM>(__VA_ARGS__); break;    \
+    case 1: FN<1, GM>(__VA_ARGS__); break;    \
+    case 2: FN<2, GM>(__VA_ARGS__); break;    \
+    case 3: FN<3, GM>(__VA_ARGS__); break;    \
+    default: FN<4, GM>(__VA_ARGS__); break;   \
+  }
+
+// Fixed-order block reduction of NV values per thread (NV <= 2 * GM):
+// butterfly shuffles inside each warp, then the warp partials added (or
+// maxed) in warp order by thread i. Results in out[0 .. NV).
+template <bool IS_MAX, int NR>
+__device__ __forceinline__ void block_reduce(const float (&v)[NR], int NV,
+                                             float (*s_red)[NWARPS], float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    if (g < G) {
-      float x = v[g];
+  for (int i = 0; i < NR; ++i) {
+    if (i < NV) {
+      float x = v[i];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
         const float y = __shfl_xor_sync(0xffffffffu, x, o);
         x = IS_MAX ? fmaxf(x, y) : x + y;
       }
-      if (lane == 0) s_red[g][warp] = x;
+      if (lane == 0) s_red[i][warp] = x;
     }
   }
   __syncthreads();
-  if (threadIdx.x < G) {
+  if (threadIdx.x < NV) {
     float x = s_red[threadIdx.x][0];
     for (int w = 1; w < NWARPS; ++w)
       x = IS_MAX ? fmaxf(x, s_red[threadIdx.x][w]) : x + s_red[threadIdx.x][w];
-    s_out[threadIdx.x] = x;
+    out[threadIdx.x] = x;
   }
   __syncthreads();
 }
 
-template <bool PAGED>
-__global__ void __launch_bounds__(NTHREADS)
-    packed_attention_kernel(const PackedAttnParams p) {
-  __shared__ float s_q[MAX_G][MAX_D];     // q permuted by K's chan_perm
-  __shared__ float s_w[MAX_G][NTHREADS];  // tile weights p * vscale
-  __shared__ float s_red[MAX_G][NWARPS];
-  __shared__ float s_m[MAX_G], s_l[MAX_G], s_z[MAX_G], s_alpha[MAX_G];
-  __shared__ float s_qsum[MAX_G], s_max[MAX_G], s_psum[MAX_G], s_zsum[MAX_G];
+// ---------------------------------------------------------------------------
+// the span kernel and the merge
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / p.Hkv, h = blockIdx.x % p.Hkv;
-  const int G = p.G, D = p.D, Dv = p.Dv, TL = p.tile_l;
-  const float sm = static_cast<float>(p.sm_scale);
-
-  // prologue: absorb the K channel permutation into q
-  const int32_t* kperm = p.kperm + b * p.kperm_sb + h * p.kperm_sh;
-  const float* qrow = p.q + (static_cast<int64_t>(b) * p.Hkv + h) * G * D;
-  for (int i = tid; i < G * D; i += NTHREADS) {
-    const int g = i / D, j = i % D;
-    s_q[g][j] = qrow[g * D + kperm[j]];
+// Merge row's live spans in span order (fixed-order LSE merge), add the
+// zero term, scatter through the V inverse permutation; run by the row's
+// last span block. s_alpha: nsp * G floats of shared scratch.
+__device__ __forceinline__ void merge_row(const PackedAttnParams& p, int row, int b, int h,
+                                          int nsp, int nspan, float* s_alpha, float* s_z) {
+  const int G = static_cast<int>(p.G), Dv = static_cast<int>(p.Dv);
+  const int64_t stride = static_cast<int64_t>(G) * (Dv + 3);
+  const float* part = p.part + static_cast<int64_t>(row) * nspan * stride;
+  if (threadIdx.x < G) {  // m, l, z and the span weights of group g
+    const int g = threadIdx.x;
+    float M = NEG_INF;
+    for (int s = 0; s < nsp; ++s) M = fmaxf(M, __ldcg(part + s * stride + G * Dv + g));
+    float l = 0.f, z = 0.f;
+    for (int s = 0; s < nsp; ++s) {
+      const float* ps = part + s * stride + G * Dv;
+      const float a = expf(__ldcg(ps + g) - M);
+      s_alpha[s * G + g] = a;
+      l = fmaf(a, __ldcg(ps + G + g), l);
+      z = fmaf(a, __ldcg(ps + 2 * G + g), z);
+    }
+    s_z[g] = z;
+    p.m_out[row * G + g] = M;
+    p.l_out[row * G + g] = l;
   }
-  if (tid < G) {
-    s_m[tid] = NEG_INF;
-    s_l[tid] = 0.f;
-    s_z[tid] = 0.f;
+  __syncthreads();
+  const int32_t* vperm = p.vperm + b * p.vperm_sb + h * p.vperm_sh;
+  for (int i = threadIdx.x; i < G * Dv; i += NTHREADS) {
+    const int g = i / Dv, c = i - g * Dv;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < nsp; ++s) acc = fmaf(s_alpha[s * G + g], __ldcg(part + s * stride + i), acc);
+    p.out[(static_cast<int64_t>(row) * G + g) * Dv + vperm[c]] = acc + s_z[g];
+  }
+}
+
+template <bool PAGED, int GM>
+__global__ void __launch_bounds__(NTHREADS)
+    packed_attention_span_kernel(const PackedAttnParams p, const SmemLayout lay) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ float s_red[2 * GM][NWARPS];
+  __shared__ float s_stat[3 * GM];  // m, l, z of the span
+  __shared__ float s_qsum[GM];
+  __shared__ float s_z[GM];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x;
+  const int b = row / static_cast<int>(p.Hkv), h = row % static_cast<int>(p.Hkv);
+  const int s0 = static_cast<int>(blockIdx.y) * SPAN;
+  int n = p.n_comp[b];
+  n = n < 0 ? 0 : (n > p.L ? static_cast<int>(p.L) : n);
+  const int G = static_cast<int>(p.G), D = static_cast<int>(p.D);
+  const int Dv = static_cast<int>(p.Dv);
+  if (s0 >= n) {  // a dead span; span 0 of an empty row writes its partials
+    if (n == 0 && blockIdx.y == 0) {
+      for (int i = tid; i < G * Dv; i += NTHREADS) p.out[static_cast<int64_t>(row) * G * Dv + i] = 0.f;
+      if (tid < G) p.m_out[row * G + tid] = NEG_INF, p.l_out[row * G + tid] = 0.f;
+    }
+    return;
+  }
+  const int nt = min(SPAN, n - s0);
+  const int lp = static_cast<int>(p.log2_pack);
+  const float sm = static_cast<float>(p.sm_scale);
+  float* s_meta = reinterpret_cast<float*>(smem + lay.meta);
+  float* s_q = reinterpret_cast<float*>(smem + lay.q);
+  float* s_ws = reinterpret_cast<float*>(smem + lay.ws);
+  float* s_part = reinterpret_cast<float*>(smem + lay.part);
+
+  // copies: K and the scale/zero (group 1); V follows once K has landed
+  stage_tiers<PAGED>(p, p.k, static_cast<int>(p.nk), lay.k_pay, lay.k_min, lay.k_sft, smem,
+                     b, h, s0, n, lay.run);
+  stage_meta<PAGED>(p, smem + lay.meta, b, h, s0, n, lay.run);
+  cp_async_commit();
+
+  // while they fly: absorb the K channel permutation into q
+  const int32_t* kperm = p.kperm + b * p.kperm_sb + h * p.kperm_sh;
+  const float* qrow = p.q + static_cast<int64_t>(row) * G * D;
+  for (int i = tid; i < G * D; i += NTHREADS) {
+    const int g = i / D, j = i - g * D;
+    s_q[i] = qrow[g * D + kperm[j]];
   }
   __syncthreads();
   if (tid < G) {
     float s = 0.f;
-    for (int j = 0; j < D; ++j) s += s_q[tid][j];
+    for (int j = 0; j < D; ++j) s += s_q[tid * D + j];
     s_qsum[tid] = s;
   }
-
-  int n = p.n_comp[b];
-  n = n < 0 ? 0 : (n > p.L ? static_cast<int>(p.L) : n);
-
-  // this thread's V channel (tier order): its tier and row within it
-  int v_t = -1, v_c = 0;
-  {
-    int off = 0;
-    for (int t = 0; t < p.nv; ++t) {
-      const int c = tid - off;
-      if (c >= 0 && c < p.v[t].count) {
-        v_t = t;
-        v_c = c;
-      }
-      off += static_cast<int>(p.v[t].count);
-    }
-  }
-  const int lp = static_cast<int>(p.log2_pack);
-  float acc[MAX_G];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) acc[g] = 0.f;
+  cp_async_wait<0>();
   __syncthreads();
+  // V (group 2) lands while the scores are computed
+  if (lay.v_early)
+    stage_tiers<PAGED>(p, p.v, static_cast<int>(p.nv), lay.v_pay, lay.v_min, lay.v_sft,
+                       smem, b, h, s0, n, lay.run);
+  cp_async_commit();
 
-  for (int t0 = 0; t0 < n; t0 += TL) {
-    // the tile's storage row s (batch row, or the physical page) and the
-    // tile's first token within it
-    int64_t s = b;
-    int lt0 = t0;
-    if (PAGED) {
-      s = p.page_table[b * p.pt_sb + t0 / p.page_size];
-      lt0 = static_cast<int>(t0 % p.page_size);
+  // scores: lane chunk t0, warp channels; then the warps' sums in order
+  const int t0 = lane * CHUNK;
+  const bool live = t0 < nt;
+  float part[GM][CHUNK];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) part[g][k] = 0.f;
+  if (live) {
+    int off = 0;
+    for (int t = 0; t < p.nk; ++t) {
+      const char* pay = smem + lay.k_pay[t];
+      const int8_t* mn = reinterpret_cast<const int8_t*>(smem + lay.k_min[t]);
+      const uint8_t* sf = reinterpret_cast<const uint8_t*>(smem + lay.k_sft[t]);
+      const int C = static_cast<int>(p.k[t].count);
+      BY_WIDTH(k_tier, static_cast<int>(p.k[t].log2_w), pay, mn, sf, lp, C, s_q + off, D, G,
+               warp, t0, part);
+      off += C;
     }
-    const int l = t0 + tid;  // the token's position in the row
-    const int ll = lt0 + tid;  // ... and in its storage row
-    const bool valid = tid < TL && l < n;
-    float sc[MAX_G];
+  }
+  const bool valid = tid < nt;  // the token this thread scores
+  float sc[GM];
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) sc[g] = NEG_INF;
-    if (valid) {
-      float si[MAX_G];
+  for (int g = 0; g < GM; ++g) {
+    sc[g] = NEG_INF;
+    if (g < G) {
+      float4* dst = reinterpret_cast<float4*>(s_part + warp * SPAN + t0);
+      dst[0] = make_float4(part[g][0], part[g][1], part[g][2], part[g][3]);
+      dst[1] = make_float4(part[g][4], part[g][5], part[g][6], part[g][7]);
+      __syncthreads();
+      float si = s_part[tid];
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) si[g] = 0.f;
-      int off = 0;
-      for (int t = 0; t < p.nk; ++t) {
-        const TierDesc& d = p.k[t];
-        const int32_t* pay = d.payload + s * d.pay_sb + h * d.pay_sh;
-        const int8_t* mn = d.mins + s * d.min_sb + h * d.min_sh;
-        const uint8_t* sf = d.shifts + s * d.sft_sb + h * d.sft_sh;
-        const int lw = static_cast<int>(d.log2_w);
-#pragma unroll 4
-        for (int c = 0; c < d.count; ++c) {
-          const float x = static_cast<float>(decode_tier_value(
-              pay + c * d.pay_sc, mn + c * d.min_sc, sf + c * d.sft_sc, lw, lp, ll));
-#pragma unroll
-          for (int g = 0; g < MAX_G; ++g)
-            if (g < G) si[g] = fmaf(s_q[g][off + c], x, si[g]);
-        }
-        off += static_cast<int>(d.count);
-      }
-      const float ks = p.kscale[s * p.kscale_sb + h * p.kscale_sh + ll];
-      const float kz = p.kzero[s * p.kzero_sb + h * p.kzero_sh + ll];
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < G) sc[g] = (si[g] * ks + s_qsum[g] * kz) * sm;
+      for (int w = 1; w < NWARPS; ++w) si += s_part[w * SPAN + tid];
+      if (valid) sc[g] = (si * s_meta[tid] + s_qsum[g] * s_meta[SPAN + tid]) * sm;
+      __syncthreads();
     }
-    // online softmax over the tile
-    block_reduce<true>(sc, G, s_red, s_max);
-    if (tid < G) {
-      const float m_new = fmaxf(s_m[tid], s_max[tid]);
-      s_alpha[tid] = expf(s_m[tid] - m_new);
-      s_m[tid] = m_new;
-    }
-    __syncthreads();
-    float pr[MAX_G], pz[MAX_G];
-    const float vs = valid ? p.vscale[s * p.vscale_sb + h * p.vscale_sh + ll] : 0.f;
-    const float vz = valid ? p.vzero[s * p.vzero_sb + h * p.vzero_sh + ll] : 0.f;
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      pr[g] = (valid && g < G) ? expf(sc[g] - s_m[g]) : 0.f;
-      pz[g] = pr[g] * vz;
-      if (g < G && tid < TL) s_w[g][tid] = pr[g] * vs;
-    }
-    block_reduce<false>(pr, G, s_red, s_psum);
-    block_reduce<false>(pz, G, s_red, s_zsum);
-    if (tid < G) {
-      s_l[tid] = s_l[tid] * s_alpha[tid] + s_psum[tid];
-      s_z[tid] = s_z[tid] * s_alpha[tid] + s_zsum[tid];
-    }
-    // V: this thread's channel over the tile's live tokens
-    if (v_t >= 0) {
-      const TierDesc& d = p.v[v_t];
-      const int32_t* v_pay = d.payload + s * d.pay_sb + h * d.pay_sh + v_c * d.pay_sc;
-      const int8_t* v_min = d.mins + s * d.min_sb + h * d.min_sh + v_c * d.min_sc;
-      const uint8_t* v_sft = d.shifts + s * d.sft_sb + h * d.sft_sh + v_c * d.sft_sc;
-      const int v_lw = static_cast<int>(d.log2_w);
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g) acc[g] *= s_alpha[g];
-      const int nl = min(TL, n - t0);
-#pragma unroll 4
-      for (int j = 0; j < nl; ++j) {
-        const float x = static_cast<float>(
-            decode_tier_value(v_pay, v_min, v_sft, v_lw, lp, lt0 + j));
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < G) acc[g] = fmaf(s_w[g][j], x, acc[g]);
-      }
-    }
-    __syncthreads();
   }
 
-  // epilogue: zero-term, V inverse permutation (scatter), partials
-  const int64_t row = static_cast<int64_t>(b) * p.Hkv + h;
-  if (v_t >= 0 && tid < Dv) {
-    const int32_t* vperm = p.vperm + b * p.vperm_sb + h * p.vperm_sh;
-    const int orig = vperm[tid];
+  // the span's softmax: one max, then one sum of (p, p * vzero) pairs
+  block_reduce<true, GM>(sc, G, s_red, s_stat);
+  float pz[2 * GM];  // p and p * vzero of group g at 2g, 2g + 1
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G) p.out[(row * G + g) * Dv + orig] = acc[g] + s_z[g];
+  for (int g = 0; g < GM; ++g) {
+    const float pr = (valid && g < G) ? expf(sc[g] - s_stat[g]) : 0.f;
+    pz[2 * g] = pr;
+    pz[2 * g + 1] = valid ? pr * s_meta[3 * SPAN + tid] : 0.f;
+    if (g < G) s_ws[g * SPAN + tid] = valid ? pr * s_meta[2 * SPAN + tid] : 0.f;
+  }
+  block_reduce<false, 2 * GM>(pz, 2 * G, s_red, s_stat + GM);  // l, z of g at GM + 2g, + 1
+
+  // V (after its copies land): warp channels, lane chunk t0
+  if (!lay.v_early) {
+    stage_tiers<PAGED>(p, p.v, static_cast<int>(p.nv), lay.v_pay, lay.v_min, lay.v_sft,
+                       smem, b, h, s0, n, lay.run);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float wr[GM][CHUNK];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+    if (g < G && live) {
+      const float4* src = reinterpret_cast<const float4*>(s_ws + g * SPAN + t0);
+      a = src[0];
+      c = src[1];
+    }
+    wr[g][0] = a.x, wr[g][1] = a.y, wr[g][2] = a.z, wr[g][3] = a.w;
+    wr[g][4] = c.x, wr[g][5] = c.y, wr[g][6] = c.z, wr[g][7] = c.w;
+  }
+  const int64_t stride = static_cast<int64_t>(G) * (Dv + 3);
+  float* out = p.part + (static_cast<int64_t>(row) * gridDim.y + blockIdx.y) * stride;
+  int off = 0;
+  for (int t = 0; t < p.nv; ++t) {
+    const char* pay = smem + lay.v_pay[t];
+    const int8_t* mn = reinterpret_cast<const int8_t*>(smem + lay.v_min[t]);
+    const uint8_t* sf = reinterpret_cast<const uint8_t*>(smem + lay.v_sft[t]);
+    const int C = static_cast<int>(p.v[t].count);
+    BY_WIDTH(v_tier, static_cast<int>(p.v[t].log2_w), pay, mn, sf, lp, C, wr, live, G, lane,
+             warp, t0, out + off, Dv);
+    off += C;
   }
   if (tid < G) {
-    p.m_out[row * G + tid] = s_m[tid];
-    p.l_out[row * G + tid] = s_l[tid];
+    out[G * Dv + tid] = s_stat[tid];                       // m
+    out[G * Dv + G + tid] = s_stat[GM + 2 * tid];          // l
+    out[G * Dv + 2 * G + tid] = s_stat[GM + 2 * tid + 1];  // z
   }
+  // the row's last live span to finish merges; the atomic counts
+  // arrivals only (no value is accumulated), and the merger resets it
+  __threadfence();
+  __syncthreads();
+  const int nsp = (n + SPAN - 1) / SPAN;
+  if (tid == 0) s_last = atomicAdd(p.counters + row, 1) == nsp - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  merge_row(p, row, b, h, nsp, static_cast<int>(gridDim.y), s_part, s_z);
+  if (tid == 0) p.counters[row] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+static int align16(int x) { return (x + 15) & ~15; }
+
+static int max_smem() {
+  static int v = 0;
+  if (!v) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    v -= 1024;  // the kernel's static shared memory
+  }
+  return v;
+}
+
+// The dynamic shared memory of a launch: the fixed parts, K's tiers, then
+// V's beside them or, if both do not fit, over K's (copied after the
+// scores).
+static SmemLayout layout(const PackedAttnParams& p, bool paged) {
+  SmemLayout s{};
+  const int lp = static_cast<int>(p.log2_pack);
+  int off = 0;
+  s.meta = off, off += 4 * SPAN * 4;
+  s.q = off, off = align16(off + static_cast<int>(p.G * p.D) * 4);
+  s.ws = off, off += static_cast<int>(p.G) * SPAN * 4;
+  s.part = off, off += NWARPS * SPAN * 4;
+  auto tiers = [&](const TierDesc* d, int64_t nt, int32_t* pay, int32_t* mn, int32_t* sf,
+                   int o) {
+    for (int t = 0; t < nt; ++t) {
+      const int C = static_cast<int>(d[t].count), lw = static_cast<int>(d[t].log2_w);
+      pay[t] = o, o = align16(o + C * ((SPAN << lw) >> 3));
+      mn[t] = o, o = align16(o + C * (SPAN >> lp));
+      sf[t] = o, o = align16(o + C * (SPAN >> (lp + 2)));
+    }
+    return o;
+  };
+  const int k_end = tiers(p.k, p.nk, s.k_pay, s.k_min, s.k_sft, off);
+  const int both = tiers(p.v, p.nv, s.v_pay, s.v_min, s.v_sft, k_end);
+  s.v_early = both <= max_smem();
+  if (!s.v_early) {
+    const int v_end = tiers(p.v, p.nv, s.v_pay, s.v_min, s.v_sft, off);
+    s.total = k_end > v_end ? k_end : v_end;
+  } else {
+    s.total = both;
+  }
+  const int64_t unit = paged ? p.page_size : p.L;
+  s.run = SPAN;
+  while (unit % s.run) s.run >>= 1;
+  return s;
+}
+
+template <bool PAGED, int GM>
+static cudaError_t launch_span(const PackedAttnParams& p, const SmemLayout& s, dim3 grid,
+                               cudaStream_t st) {
+  static int configured = 48 * 1024;
+  auto kernel = packed_attention_span_kernel<PAGED, GM>;
+  if (s.total > configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.total);
+    if (e != cudaSuccess) return e;
+    configured = s.total;
+  }
+  kernel<<<grid, NTHREADS, s.total, st>>>(p, s);
+  return cudaGetLastError();
 }
 
 template <bool PAGED>
 static int launch(const PackedAttnParams* p, void* stream) {
-  const dim3 grid(static_cast<unsigned>(p->B * p->Hkv));
-  packed_attention_kernel<PAGED>
-      <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  const SmemLayout s = layout(*p, PAGED);
+  if (s.total > max_smem() || s.run < (4 << p->log2_pack) || s.run < 32 || p->G > MAX_G ||
+      p->D > MAX_D || p->Dv > MAX_D || (p->L + SPAN - 1) / SPAN * p->G > NWARPS * SPAN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nspan = static_cast<int>((p->L + SPAN - 1) / SPAN);
+  const dim3 grid(static_cast<unsigned>(p->B * p->Hkv), static_cast<unsigned>(nspan));
+  cudaError_t e;
+  if (p->G == 1)
+    e = launch_span<PAGED, 1>(*p, s, grid, st);
+  else if (p->G == 2)
+    e = launch_span<PAGED, 2>(*p, s, grid, st);
+  else if (p->G <= 4)
+    e = launch_span<PAGED, 4>(*p, s, grid, st);
+  else
+    e = launch_span<PAGED, 8>(*p, s, grid, st);
+  return static_cast<int>(e);
 }
 
 extern "C" int packed_attention_params_size() {
   return static_cast<int>(sizeof(PackedAttnParams));
 }
 
-// Launch on `stream`; return cudaGetLastError() (0 on success). The
-// caller checks shapes, types and strides (kernels/packed_attention.py).
+extern "C" int packed_attention_span() { return SPAN; }
+
+// The dynamic shared memory one span block of this launch takes, in bytes.
+extern "C" int packed_attention_smem_bytes(const PackedAttnParams* p, int paged) {
+  return layout(*p, paged != 0).total;
+}
+
+// Launch the span kernel on `stream`; return cudaGetLastError() (0 on
+// success). The caller checks shapes, types and strides, allocates
+// p->part and passes zeroed p->counters (kernels/packed_attention.py).
 extern "C" int packed_attention_launch(const PackedAttnParams* p, void* stream) {
   return launch<false>(p, stream);  // K2: dense leaves
 }

@@ -1,17 +1,19 @@
-"""Single-launch fused decode attention over the compressed KV cache:
-K2 over the dense cache, K5 over the page pool.
+"""Fused decode attention over the compressed KV cache: K2 over the dense
+cache, K5 over the page pool.
 
 The torch port of ``repro/kernels/packed_attention.py::
 fused_packed_attention`` (K2) and ``::fused_packed_attention_paged`` (K5).
 Each wrapper launches, on CUDA tensors, the hand-written CUDA kernel of
 ``csrc/packed_attention.cu`` (one body, templated on dense or paged
-addressing; tier decode from ``csrc/unpack.cuh`` inlined); on CPU
-tensors, and only there, it runs its plain version
+addressing; tier decode from ``csrc/unpack.cuh`` inlined): a block per
+(row, SPAN-token span), the row's last span block merging the spans in
+order; on CPU tensors, and only there, it runs its plain version
 (``fused_packed_attention_torch`` / ``fused_packed_attention_paged_torch``,
-which share the tile loop). All return the log-sum-exp partials of
-attention over the compressed region, for the merge with the residual
-buffer in ``kernels/ops.py``. Each wrapper counts its kernel launches in
-``.launches``.
+which share the reference's tile loop). ``*_split_torch`` are plain
+versions with the kernel's split structure (``_split_partials``). All
+return the log-sum-exp partials of attention over the compressed region,
+for the merge with the residual buffer in ``kernels/ops.py``. Each wrapper
+counts its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from .unpack import decode_tier_tile
 
 NEG_INF = -1e30
 DEFAULT_TILE_L = 256
+SPAN = 256  # tokens per block of the CUDA kernel's split (csrc SPAN)
 MAX_TIERS = 6  # csrc/packed_attention.cu limits
 MAX_G = 8
 MAX_D = 256
@@ -50,6 +53,49 @@ def _rows_to_bh(n_comp, B: int, h_kv: int, device) -> torch.Tensor:
     return _rows(n_comp, B, device)[:, None].expand(B, h_kv).reshape(B * h_kv)
 
 
+def _prologue(q, kc: TieredCache, n_comp):
+    """q permuted by K's chan_perm as [BH, G, D] f32, its per-group sums
+    [BH, G] and the valid counts [BH, 1]."""
+    B, H, D = q.shape
+    h_kv = kc.chan_perm.shape[1]
+    qg = q.to(torch.float32).reshape(B, h_kv, H // h_kv, D)
+    perm = kc.chan_perm.to(torch.int64)[:, :, None, :].expand_as(qg)
+    qf = torch.gather(qg, -1, perm).reshape(B * h_kv, H // h_kv, D)
+    return qf, qf.sum(-1), _rows_to_bh(n_comp, B, h_kv, q.device)[:, None]
+
+
+def _scores(qf, qsum, kc: TieredCache, decode, kscale, kzero, tok, valid,
+            sm_scale):
+    """Masked scores [BH, G, TL] of the tokens ``tok``: every K tier's
+    decoded ints (``decode(tier)``, [BH, C, TL]) against q's channels."""
+    offs = kc.spec.offsets()
+    si = None
+    for i, t in enumerate(kc.tiers):
+        d = torch.bmm(qf[..., offs[i]:offs[i + 1]], decode(t))
+        si = d if si is None else si + d
+    scores = (si * kscale[:, None, tok]
+              + qsum[..., None] * kzero[:, None, tok]) * sm_scale
+    return torch.where(valid > 0, scores, NEG_INF)
+
+
+def _weighted_v(acc, ws, vc: TieredCache, decode):
+    """acc[..., tier channels] += ws @ V_int^T per V tier, IN PLACE."""
+    offs = vc.spec.offsets()
+    for i, t in enumerate(vc.tiers):
+        acc[..., offs[i]:offs[i + 1]] += torch.bmm(ws, decode(t).transpose(1, 2))
+    return acc
+
+
+def _finish(acc, zsum, m, lsum, vc: TieredCache, B: int, H: int):
+    """o = acc + zsum in original channel order (the V inverse
+    permutation: o_orig[..., perm[j]] = o[..., j]), m and l as [B, H]."""
+    h_kv = vc.chan_perm.shape[1]
+    o = (acc + zsum[..., None]).reshape(B, h_kv, H // h_kv, -1)
+    vperm = vc.chan_perm.to(torch.int64)[:, :, None, :].expand_as(o)
+    o = torch.empty_like(o).scatter_(-1, vperm, o)
+    return o.reshape(B, H, -1), m.reshape(B, H), lsum.reshape(B, H)
+
+
 def _flash_partials(q, kc: TieredCache, vc: TieredCache, n_comp, sm_scale,
                     L: int, tile_l: int, tier_tile, meta):
     """The Pallas kernels' tile loop (flash recurrence over context tiles),
@@ -59,23 +105,14 @@ def _flash_partials(q, kc: TieredCache, vc: TieredCache, n_comp, sm_scale,
     tile starting at token ``t0`` as [BH, C, ·]; ``meta`` holds (kscale,
     kzero, vscale, vzero) dense [BH, L]. Returns (o_unnorm [B, H, Dv] in
     original channel order, m [B, H], l [B, H])."""
-    B, H, D = q.shape
-    h_kv = kc.chan_perm.shape[1]
-    G = H // h_kv
-    BH = B * h_kv
+    B, H = q.shape[:2]
+    qf, qsum, n = _prologue(q, kc, n_comp)
+    BH, G = qf.shape[:2]
     pack = kc.spec.pack_size
-    Dv = vc.spec.head_dim
     dev = q.device
     kscale, kzero, vscale, vzero = meta
 
-    qg = q.to(torch.float32).reshape(B, h_kv, G, D)
-    perm = kc.chan_perm.to(torch.int64)[:, :, None, :].expand_as(qg)
-    qf = torch.gather(qg, -1, perm).reshape(BH, G, D)
-    qsum = qf.sum(-1)  # [BH, G]
-    n = _rows_to_bh(n_comp, B, h_kv, dev)[:, None]  # [BH, 1]
-    k_offs, v_offs = kc.spec.offsets(), vc.spec.offsets()
-
-    acc = torch.zeros((BH, G, Dv), dtype=torch.float32, device=dev)
+    acc = torch.zeros((BH, G, vc.spec.head_dim), dtype=torch.float32, device=dev)
     zsum = torch.zeros((BH, G), dtype=torch.float32, device=dev)
     m = torch.full((BH, G), NEG_INF, dtype=torch.float32, device=dev)
     lsum = torch.zeros((BH, G), dtype=torch.float32, device=dev)
@@ -83,32 +120,66 @@ def _flash_partials(q, kc: TieredCache, vc: TieredCache, n_comp, sm_scale,
     n_live = min(int(n.max()), L) if BH else 0
     for t0 in range(0, n_live, tile_l):
         decode = lambda t: decode_tier_tile(*tier_tile(t, t0), t.width, pack)
-        si = None
-        for i, t in enumerate(kc.tiers):
-            d = torch.bmm(qf[..., k_offs[i]:k_offs[i + 1]], decode(t))
-            si = d if si is None else si + d  # [BH, G, TL]
         tok = slice(t0, t0 + tile_l)
-        scores = (si * kscale[:, None, tok]
-                  + qsum[..., None] * kzero[:, None, tok]) * sm_scale
         gidx = torch.arange(t0, t0 + tile_l, device=dev)
         valid = (gidx[None, :] < n).to(torch.float32)[:, None, :]  # [BH,1,TL]
-        scores = torch.where(valid > 0, scores, NEG_INF)
+        scores = _scores(qf, qsum, kc, decode, kscale, kzero, tok, valid,
+                         sm_scale)
         m_new = torch.maximum(m, scores.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(scores - m_new[..., None]) * valid
         lsum = lsum * alpha + p.sum(-1)
         m = m_new
-        ws = p * vscale[:, None, tok]
-        acc = acc * alpha[..., None]
-        for i, t in enumerate(vc.tiers):
-            acc[..., v_offs[i]:v_offs[i + 1]] += torch.bmm(ws, decode(t).transpose(1, 2))
+        acc = _weighted_v(acc * alpha[..., None], p * vscale[:, None, tok], vc,
+                          decode)
         zsum = zsum * alpha + (p * vzero[:, None, tok]).sum(-1)
+    return _finish(acc, zsum, m, lsum, vc, B, H)
 
-    o = (acc + zsum[..., None]).reshape(B, h_kv, G, Dv)
-    # V inverse permutation: o_orig[..., perm[j]] = o[..., j]
-    vperm = vc.chan_perm.to(torch.int64)[:, :, None, :].expand_as(o)
-    o = torch.empty_like(o).scatter_(-1, vperm, o)
-    return o.reshape(B, H, Dv), m.reshape(B, H), lsum.reshape(B, H)
+
+def _split_partials(q, kc: TieredCache, vc: TieredCache, n_comp, sm_scale,
+                    L: int, window, meta):
+    """The CUDA kernel's structure in plain PyTorch: each SPAN-token window
+    of a row on its own (one max, one sum: the window's partials), then
+    the live windows merged in window order (fixed-order LSE merge).
+
+    ``window(buf, s0, n)`` gives a tier's (payload, mins, shifts) for the
+    ``n`` tokens from ``s0`` as [BH, C, ·]; ``meta`` as ``_flash_partials``.
+    Every window but a bucket's last holds SPAN tokens whatever L or the
+    page size, so the float operations depend on token indices alone."""
+    B, H = q.shape[:2]
+    qf, qsum, n = _prologue(q, kc, n_comp)
+    BH, G = qf.shape[:2]
+    pack = kc.spec.pack_size
+    dev = q.device
+    kscale, kzero, vscale, vzero = meta
+    Dv = vc.spec.head_dim
+
+    m = torch.full((BH, G), NEG_INF, dtype=torch.float32, device=dev)
+    spans = []
+    for s0 in range(0, min(int(n.max()), L) if BH else 0, SPAN):
+        tl = min(SPAN, L - s0)
+        decode = lambda t: decode_tier_tile(*window(t, s0, tl), t.width, pack)
+        tok = slice(s0, s0 + tl)
+        gidx = torch.arange(s0, s0 + tl, device=dev)
+        valid = (gidx[None, :] < n).to(torch.float32)[:, None, :]
+        scores = _scores(qf, qsum, kc, decode, kscale, kzero, tok, valid,
+                         sm_scale)
+        m_s = scores.amax(-1)
+        p = torch.exp(scores - m_s[..., None]) * valid
+        acc_s = torch.zeros((BH, G, Dv), dtype=torch.float32, device=dev)
+        acc_s = _weighted_v(acc_s, p * vscale[:, None, tok], vc, decode)
+        live = s0 < n  # [BH, 1]
+        spans.append((m_s, p.sum(-1), (p * vzero[:, None, tok]).sum(-1), acc_s, live))
+        m = torch.where(live, torch.maximum(m, m_s), m)
+    acc = torch.zeros((BH, G, Dv), dtype=torch.float32, device=dev)
+    zsum = torch.zeros((BH, G), dtype=torch.float32, device=dev)
+    lsum = torch.zeros((BH, G), dtype=torch.float32, device=dev)
+    for m_s, l_s, z_s, acc_s, live in spans:
+        a = torch.where(live, torch.exp(m_s - m), 0.0)
+        acc = acc + a[..., None] * acc_s
+        lsum = lsum + a * l_s
+        zsum = zsum + a * z_s
+    return _finish(acc, zsum, m, lsum, vc, B, H)
 
 
 def _tier_window(t, t0: int, tile_l: int):
@@ -200,6 +271,54 @@ def fused_packed_attention_paged_torch(q: torch.Tensor, kc: TieredCache,
                            tier_tile, meta)
 
 
+def fused_packed_attention_split_torch(q: torch.Tensor, kc: TieredCache,
+                                       vc: TieredCache, n_comp,
+                                       sm_scale: float):
+    """Plain PyTorch version of K2 with the CUDA kernel's split structure
+    (``_split_partials``): SPAN-token windows merged in window order.
+    Arguments and results as ``fused_packed_attention_torch``; within
+    f32 rounding of it, bitwise equal over any bucket that holds every
+    row's count (buckets a multiple of SPAN) and to
+    ``fused_packed_attention_paged_split_torch`` on the pages."""
+    B = q.shape[0]
+    h_kv = kc.scale.shape[-2]
+    L = kc.capacity
+    _check_tiling(L, kc.spec.pack_size, DEFAULT_TILE_L)
+    flat = lambda a: a.reshape(B * h_kv, *a.shape[2:])
+
+    def window(t, s0, n):
+        return tuple(flat(leaf)[..., s] for leaf, s in
+                     zip((t.payload, t.mins, t.shifts), _tier_window(t, s0, n)))
+
+    meta = tuple(flat(a) for a in (kc.scale, kc.zero, vc.scale, vc.zero))
+    return _split_partials(q, kc, vc, n_comp, sm_scale, L, window, meta)
+
+
+def fused_packed_attention_paged_split_torch(q: torch.Tensor, kc: TieredCache,
+                                             vc: TieredCache, page_table, n_comp,
+                                             n_tokens: int, sm_scale: float, *,
+                                             page_size: int):
+    """Plain PyTorch version of K5 with the CUDA kernel's split structure:
+    each window's tiers gathered from its pages (runs of ``min(SPAN,
+    page_size)`` tokens, each resolving its page through ``page_table``).
+    Arguments and results as ``fused_packed_attention_paged_torch``."""
+    B = q.shape[0]
+    h_kv = kc.scale.shape[0]
+    _check_paged(page_table, n_tokens, page_size, kc.spec.pack_size,
+                 kc.scale.shape[-1], DEFAULT_TILE_L)
+    run = min(SPAN, page_size)
+
+    def window(t, s0, n):
+        pieces = [_paged_tile(t, r0, run, page_table, page_size)
+                  for r0 in range(s0, s0 + n, run)]
+        return tuple(torch.cat(leaf, -1) for leaf in zip(*pieces))
+
+    meta = tuple(gather_page_meta(a, page_table, n_tokens, page_size)
+                 .reshape(B * h_kv, n_tokens)
+                 for a in (kc.scale, kc.zero, vc.scale, vc.zero))
+    return _split_partials(q, kc, vc, n_comp, sm_scale, n_tokens, window, meta)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel binding
 # ---------------------------------------------------------------------------
@@ -227,12 +346,25 @@ class _Params(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in
            ("n_comp", "out", "m_out", "l_out", "page_table")]
         + [(f, ctypes.c_int64) for f in ("pt_sb", "page_size", "B", "Hkv", "G",
-                                         "D", "Dv", "L", "log2_pack", "tile_l")]
-        + [("sm_scale", ctypes.c_double)]
+                                         "D", "Dv", "L", "log2_pack")]
+        + [("sm_scale", ctypes.c_double), ("part", ctypes.c_void_p),
+           ("counters", ctypes.c_void_p)]
     )
 
 
 _lib = None
+_counters: dict = {}
+
+
+def _arrivals(device, n: int) -> torch.Tensor:
+    """The span blocks' arrival counters for ``n`` (row, head) pairs: zero
+    between launches (the block that merges a row resets its counter), one
+    tensor per device, so launches on one stream at a time."""
+    c = _counters.get(device)
+    if c is None or c.numel() < n:
+        c = _counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                            device=device)
+    return c
 
 
 def _library():
@@ -247,12 +379,32 @@ def _library():
         for fn in (lib.packed_attention_launch, lib.packed_attention_paged_launch):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.packed_attention_span.restype = ctypes.c_int
+        lib.packed_attention_span.argtypes = []
+        lib.packed_attention_smem_bytes.restype = ctypes.c_int
+        lib.packed_attention_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
         size = lib.packed_attention_params_size()
         if size != ctypes.sizeof(_Params):
             raise RuntimeError(f"kernel params are {size} bytes in C, "
                                f"{ctypes.sizeof(_Params)} in Python")
+        if lib.packed_attention_span() != SPAN:
+            raise RuntimeError(f"the kernel's span is {lib.packed_attention_span()} "
+                               f"tokens, {SPAN} in Python")
         _lib = lib
     return _lib
+
+
+def kernel_smem_bytes(kc: TieredCache, vc: TieredCache, G: int) -> int:
+    """Dynamic shared memory of one span block of K2 / K5 at these specs
+    and group size, in bytes (the layout in csrc/packed_attention.cu)."""
+    p = _Params()
+    for descs, tc in ((p.k, kc), (p.v, vc)):
+        for d, w, c in zip(descs, tc.spec.widths, tc.spec.counts):
+            d.log2_w, d.count = w.bit_length() - 1, c
+    p.nk, p.nv = len(kc.spec.widths), len(vc.spec.widths)
+    p.G, p.D, p.Dv = G, kc.spec.head_dim, vc.spec.head_dim
+    p.log2_pack, p.L = kc.spec.pack_size.bit_length() - 1, SPAN
+    return _library().packed_attention_smem_bytes(ctypes.addressof(p), 0)
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
@@ -295,7 +447,7 @@ def _tier_descs(tc: TieredCache, lead: tuple, device, name: str,
 
 
 def _params(q, kc: TieredCache, vc: TieredCache, n_comp, sm_scale: float,
-            L: int, tile_l: int, lead: tuple, meta_shape: tuple,
+            L: int, lead: tuple, meta_shape: tuple,
             paged: bool):
     """Check a launch's inputs and fill the kernel's parameter struct.
     Returns (params, out, m, l); the caller keeps every tensor alive."""
@@ -332,6 +484,9 @@ def _params(q, kc: TieredCache, vc: TieredCache, n_comp, sm_scale: float,
     out = torch.empty((B, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     lsum = torch.empty((B, H), dtype=torch.float32, device=dev)
+    # each live span's partials: acc [G, Dv], then m, l, z [G] each
+    part = torch.empty((B * h_kv, -(-L // SPAN), H // h_kv * (Dv + 3)),
+                       dtype=torch.float32, device=dev)
     p = _Params()
     p.k = _tier_descs(kc, lead, dev, "K", paged)
     p.v = _tier_descs(vc, lead, dev, "V", paged)
@@ -347,8 +502,10 @@ def _params(q, kc: TieredCache, vc: TieredCache, n_comp, sm_scale: float,
     p.n_comp, p.out, p.m_out, p.l_out = (n.data_ptr(), out.data_ptr(),
                                          m.data_ptr(), lsum.data_ptr())
     p.B, p.Hkv, p.G, p.D, p.Dv, p.L = B, h_kv, H // h_kv, D, Dv, L
-    p.log2_pack, p.tile_l, p.sm_scale = pack.bit_length() - 1, tile_l, sm_scale
-    return p, (qf, n), out, m, lsum
+    p.log2_pack, p.sm_scale = pack.bit_length() - 1, sm_scale
+    p.part = part.data_ptr()
+    p.counters = _arrivals(dev, B * h_kv).data_ptr()
+    return p, (qf, n, part), out, m, lsum
 
 
 def _launch(fn, p, q, name: str) -> None:
@@ -377,8 +534,8 @@ def fused_packed_attention(q: torch.Tensor, kc: TieredCache, vc: TieredCache,
     B = q.shape[0]
     h_kv = kc.scale.shape[-2]
     L = kc.capacity
-    tile_l = _check_tiling(L, kc.spec.pack_size, tile_l)
-    p, keep, out, m, lsum = _params(q, kc, vc, n_comp, sm_scale, L, tile_l,
+    _check_tiling(L, kc.spec.pack_size, tile_l)  # the reference's contract
+    p, keep, out, m, lsum = _params(q, kc, vc, n_comp, sm_scale, L,
                                     (B, h_kv), (B, h_kv, L), paged=False)
     lib = _library()
     fused_packed_attention.launches += 1
@@ -397,12 +554,14 @@ def fused_packed_attention_paged(q: torch.Tensor, kc: TieredCache,
 
     kc/vc: pool-layout TieredCaches (leaves [H_kv, n_pool_pages, ...],
     ``chan_perm`` [B, H_kv, D]); page_table: int32 [B, max_pages];
-    n_tokens: the launch bucket, a whole number of pages. Each tile
-    (``min(tile_l, page_size)`` tokens, inside one page) resolves its
-    physical page through the table; rows read at most ``min(n_comp,
-    n_tokens)`` tokens, so table entries past a row's live pages are never
-    read. Returns the same partials as ``fused_packed_attention``,
-    bitwise equal to it on the gathered dense view.
+    n_tokens: the launch bucket, a whole number of pages. The kernel
+    stages each span in runs that never straddle a page, each run
+    resolving its physical page through the table; rows read at most
+    ``min(n_comp, n_tokens)`` tokens, so table entries past a row's live
+    pages are never read. The tiling rules (``tile_l``) are the
+    reference's and are checked; the plain version runs them. Returns the
+    same partials as ``fused_packed_attention``, bitwise equal to it on
+    the gathered dense view at any page size.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.
@@ -411,16 +570,15 @@ def fused_packed_attention_paged(q: torch.Tensor, kc: TieredCache,
         return fused_packed_attention_paged_torch(
             q, kc, vc, page_table, n_comp, n_tokens, sm_scale,
             page_size=page_size, tile_l=tile_l)
-    tile_l = _check_paged(page_table, n_tokens, page_size, kc.spec.pack_size,
-                          kc.scale.shape[-1], tile_l)
+    _check_paged(page_table, n_tokens, page_size, kc.spec.pack_size,
+                 kc.scale.shape[-1], tile_l)
     B = q.shape[0]
     h_kv, P = kc.scale.shape[:2]
     _check(page_table, "page_table", torch.int32, q.device, 2)
     if page_table.shape[0] != B:
         raise ValueError(f"page_table has {page_table.shape[0]} rows, q {B}")
     p, keep, out, m, lsum = _params(q, kc, vc, n_comp, sm_scale, n_tokens,
-                                    tile_l, (h_kv, P), (h_kv, P, page_size),
-                                    paged=True)
+                                    (h_kv, P), (h_kv, P, page_size), paged=True)
     p.page_table, p.pt_sb, p.page_size = (page_table.data_ptr(),
                                           page_table.stride(0), page_size)
     lib = _library()

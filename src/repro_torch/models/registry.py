@@ -17,7 +17,7 @@ ModelApi:
       -> (tokens [t_max, B], n_exec, cache)
   prefill_chunk_init(cfg, pack_cfg, capacity, prompt_len=..., device=...)
       -> scratch
-  prefill_chunk(params, cfg, pack_cfg, scratch, tokens, n_ctx=...)
+  prefill_chunk(params, cfg, pack_cfg, scratch, tokens, n_ctx=..., rows=...)
       -> (last_logits [1, V], scratch)
   prefill_chunk_insert(cfg, pack_cfg, capacity, cache, slot, scratch)
       -> cache with row ``slot`` replaced

@@ -190,7 +190,8 @@ def prefill_chunk_init(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
 
 
 def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
-                  scratch: dict, tokens: torch.Tensor, *, n_ctx: int):
+                  scratch: dict, tokens: torch.Tensor, *, n_ctx: int,
+                  rows: int | None = None):
     """One bounded chunk of a chunked admission. tokens: int [1, Sc] at
     positions ``n_ctx + arange(Sc)``. Writes the chunk's K/V into the
     scratch IN PLACE; returns (last-token logits [1, V], scratch). Only the
@@ -199,11 +200,19 @@ def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
     Attention reads the scratch's first ``T`` keys, ``T`` rounded up to
     the monolithic pass's kv tile (``min(1024, prompt_len)``), so every
     query row sees the tiling ``flash_attention`` gives it over the whole
-    prompt (the reference cut ``T`` to the chunk's end)."""
+    prompt (the reference cut ``T`` to the chunk's end).
+
+    ``rows``: the chunk runs padded with zero rows to this height (its
+    keys are not written; the logits are the last real row's), so a short
+    final chunk's GEMMs and attention products have the shape of a full
+    chunk's. Rows of a matrix product are independent, so this changes no
+    value; on the GPU it keeps cuBLAS from picking other kernels (another
+    summation order) for a short chunk than for the full ones."""
     tokens = tokens.to(torch.int64)
     h = params["embed"][tokens]
     B, Sc, _ = h.shape
-    positions = n_ctx + torch.arange(Sc, device=h.device)
+    h = torch.nn.functional.pad(h, (0, 0, 0, max(0, (rows or Sc) - Sc)))
+    positions = n_ctx + torch.arange(h.shape[1], device=h.device)
     S = scratch["k"].shape[-2]
     T = min(S, round_up(n_ctx + Sc, min(1024, S)))
     for i in range(cfg.n_layers):
@@ -212,14 +221,14 @@ def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
                            cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
                            cfg.use_rope)
         ks, vs = scratch["k"][i], scratch["v"][i]
-        ks[:, :, n_ctx:n_ctx + Sc] = k
-        vs[:, :, n_ctx:n_ctx + Sc] = v
+        ks[:, :, n_ctx:n_ctx + Sc] = k[:, :, :Sc]
+        vs[:, :, n_ctx:n_ctx + Sc] = v[:, :, :Sc]
         attn = resume_attention(q, ks[:, :, :T], vs[:, :, :T], n_ctx,
                                 causal=cfg.causal, window=cfg.window)
-        attn = attn.transpose(1, 2).reshape(B, Sc, cfg.n_heads * cfg.hd)
+        attn = attn.transpose(1, 2).reshape(B, h.shape[1], cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
         h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
-    return _head(params, h), scratch
+    return _head(params, h[:, :Sc]), scratch
 
 
 def prefill_chunk_insert(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,

@@ -183,12 +183,14 @@ class Engine:
                                            device=self.device)
 
     def chunk_step(self, scratch: dict, tokens, n_ctx: int):
-        """One bounded prefill chunk at absolute offset ``n_ctx``. Returns
-        (last-token logits [V], scratch); only the final chunk's logits
-        are meaningful."""
+        """One bounded prefill chunk at absolute offset ``n_ctx``, its
+        GEMMs over a full chunk's height (``prefill_chunk``'s ``rows``).
+        Returns (last-token logits [V], scratch); only the final chunk's
+        logits are meaningful."""
         logits, scratch = self.api.prefill_chunk(
             self.params, self.cfg, self.pack_cfg, scratch,
-            self._tokens(tokens)[None], n_ctx=n_ctx)
+            self._tokens(tokens)[None], n_ctx=n_ctx,
+            rows=max(1, self.ecfg.prefill_chunk_pages) * self.ecfg.page_size)
         return logits[0], scratch
 
     def chunk_insert(self, cache, slot: int, scratch: dict):

@@ -26,6 +26,7 @@ from repro_torch.kernels.packed_attention import (
     fused_packed_attention,
     fused_packed_attention_paged,
     fused_packed_attention_paged_torch,
+    fused_packed_attention_split_torch,
     fused_packed_attention_torch,
 )
 from repro_torch.kernels.vpack_matvec import (
@@ -101,7 +102,7 @@ def _to_pool(cache, page, gen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("page", [256, 512])
+@pytest.mark.parametrize("page", [64, 128, 256, 512])
 @pytest.mark.parametrize("widths,counts,pack,G", [
     ((4,), (128,), 8, 1),
     ((1, 2, 4, 8), (32, 32, 32, 32), 8, 4),
@@ -109,7 +110,8 @@ def _to_pool(cache, page, gen):
 def test_paged_kernel_matches_plain_and_k2(cuda, page, widths, counts, pack, G):
     """K5 over a shuffled page table and ragged rows (one empty): within
     tolerance of its plain version, bitwise equal to K2 on the gathered
-    dense view, bitwise equal to itself."""
+    dense view at every page size (a span covers several pages or part of
+    one), bitwise equal to itself."""
     gen = torch.Generator(device=cuda).manual_seed(page)
     spec = tt.TierSpec(widths, counts, pack)
     cache = _random_cache(gen, 4, 4, 128, 1024, spec, (1024, 0, 300, 700), cuda)
@@ -131,6 +133,57 @@ def test_paged_kernel_matches_plain_and_k2(cuda, page, widths, counts, pack, G):
             torch.testing.assert_close(g, w, **TOL)
         o, m, l = got
         assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths,counts,pack,G", [
+    ((4,), (128,), 8, 1),
+    ((4, 16), (96, 32), 16, 4),
+])
+def test_k2_bucket_view_equals_full_capacity(cuda, widths, counts, pack, G):
+    """K2 over a 1024-token bucket view (``slice_compressed``) is bitwise
+    equal to K2 over the 2048-token capacity when every row's count fits
+    the bucket (the spans do not depend on L), and both are within
+    tolerance of the plain version with the kernel's split structure."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    spec = tt.TierSpec(widths, counts, pack)
+    cache = _random_cache(gen, 4, 4, 128, 2048, spec, (2048, 0, 1000, 700), cuda)
+    q = torch.randn((4, 4 * G, 128), generator=gen, device=cuda)
+    n = torch.clamp(cache.n_comp, max=1024)
+    view = tc.slice_compressed(cache, 1024)
+    sliced = fused_packed_attention(q, view.k, view.v, n, 0.1)
+    full = fused_packed_attention(q, cache.k, cache.v, n, 0.1)
+    torch.cuda.synchronize()
+    want = fused_packed_attention_split_torch(q, cache.k, cache.v, n, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(sliced, full))
+    (o, m, l), (wo, wm, wl) = sliced, want
+    torch.testing.assert_close(m, wm, **TOL)
+    torch.testing.assert_close(l, wl, **TOL)
+    # o after dividing by l: the unnormalized sums over 2048 tokens reach
+    # ~1e2, so f32 sums in another order differ by ~1e-4 on o itself
+    norm = lambda o, l: o / torch.clamp(l, min=1e-30)[..., None]
+    torch.testing.assert_close(norm(o, l), norm(wo, wl), **TOL)
+
+
+@pytest.mark.gpu
+def test_wide_spec_stages_v_after_the_scores(cuda):
+    """A spec whose K and V tiers do not fit in shared memory side by side
+    (D = 256, one width-16 tier: ~133 KB each) stages V into K's space
+    after the scores: still within tolerance of the plain version, the
+    empty row exact, two launches bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    spec = tt.TierSpec((16,), (256,), 16)
+    cache = _random_cache(gen, 3, 2, 256, 512, spec, (512, 0, 200), cuda)
+    q = torch.randn((3, 4, 256), generator=gen, device=cuda)
+    got = fused_packed_attention(q, cache.k, cache.v, cache.n_comp, 0.05)
+    again = fused_packed_attention(q, cache.k, cache.v, cache.n_comp, 0.05)
+    torch.cuda.synchronize()
+    want = fused_packed_attention_torch(q, cache.k, cache.v, cache.n_comp, 0.05)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, **TOL)
+    o, m, l = got
+    assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
 
 
 @pytest.mark.gpu
