@@ -60,11 +60,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      backend; at the main shape timed (as K2) beside the plain version,
      the byte bound and torch.bmm over the dequantized bf16 K or V (the
      uncompressed cuBLAS yardstick; the port never calls it), and the
-     whole entry-point call. Paged half (matvec_paged), pages 256 and 512
-     under a shuffled table: K6 and K7 bitwise equal to K3 and K4 on the
-     dense cache and to themselves, timed likewise. Then the main path
-     (matvec_path): the four entry points called once each with every
-     launch count set to 0 first; each kernel must have launched.
+     whole entry-point call; K4 and K7 also beside an empty launch and a
+     torch.sum over as many bytes as each must move (their ratios to
+     both). Paged half (matvec_paged), pages 256 and 512 under a shuffled
+     table: K6 and K7 bitwise equal to K3 and K4 on the dense cache and to
+     themselves, timed likewise. A wide spec (matvec_wide: one width-16
+     tier of 256 channels, G=8, more channel groups than K4/K7 keep in
+     flight): K4 within the bound of its plain version, bitwise equal to
+     itself, K7 at pages 64, 128, 256 and 512 bitwise equal to it. Then the
+     main path (matvec_path): the four entry points called once each with
+     every launch count set to 0 first; each kernel must have launched.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}.
 """
@@ -692,6 +697,62 @@ def bound(nbytes: int, flops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def yardsticks(ms: float, nbytes: int, flush, device) -> dict:
+    """An empty launch and a torch.sum over a contiguous f32 tensor of
+    nbytes, timed as the kernels are, and a kernel time's ratio to each."""
+    import torch
+
+    x = torch.ones(nbytes // 4, device=device)
+    empty = time_ms(lambda: torch.cuda._sleep(0), flush)
+    total = time_ms(lambda: x.sum(), flush)
+    return {"empty_launch_ms": empty, "torch_sum_ms": total,
+            "vs_empty_launch": ms / empty, "vs_torch_sum": ms / total}
+
+
+def phase_matvec_wide(device, gen) -> None:
+    """K4 and K7 at a spec with more channel groups than they keep in
+    flight (one width-16 tier of 256 channels, G=8): within the f32 bound
+    of its plain version, bitwise equal over two launches, K7 at pages
+    64, 128, 256 and 512 bitwise equal to K4 on the gathered view."""
+    import torch
+
+    from repro_torch.core.tiered import TierSpec, unpack_tier
+    from repro_torch.kernels.packed_attention import _rows_to_bh
+    from repro_torch.kernels.vpack_matvec import (
+        vpack_tier_out,
+        vpack_tier_out_paged,
+        vpack_tier_out_torch,
+    )
+
+    spec = TierSpec((16,), (256,), 8)
+    B, h_kv, G, D, L = 4, 4, 8, 256, 2048
+    cache = ragged_cache(spec, spec, B, h_kv, D, L, LENGTHS, gen)
+    BH = B * h_kv
+    t = cache.v.tiers[0]
+    leaves = tuple(x.reshape(BH, *x.shape[2:]) for x in (t.payload, t.mins, t.shifts))
+    w = torch.softmax(torch.randn((BH, G, L), generator=gen, device=device), -1)
+    nv = _rows_to_bh(cache.n_comp, B, h_kv, device)
+    kw = dict(width=16, pack_size=8)
+    got = vpack_tier_out(*leaves, w, n_valid=nv, **kw)
+    again = vpack_tier_out(*leaves, w, n_valid=nv, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "wide spec: two K4 launches differ")
+    mag = torch.bmm(w.abs(), unpack_tier(t, L).reshape(BH, 256, L).float().abs().transpose(1, 2))
+    err = within_bound(got, vpack_tier_out_torch(*leaves, w, n_valid=nv, **kw), mag, L)
+    for page in (64, 128, 256, 512):
+        pool = to_pool(cache, page, gen)
+        pt = pool.v.tiers[0]
+        paged = vpack_tier_out_paged(pt.payload, pt.mins, pt.shifts, w, pool.pages.page_table,
+                                     nv, page_size=page, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(paged, got), f"wide spec, page {page}: K7 != K4")
+        del pool
+    emit({"phase": "matvec_wide", "v_spec": [spec.widths, spec.counts], "pack": 8, "B": B,
+          "H_kv": h_kv, "G": G, "L": L, "n_valid": list(LENGTHS), "k4_max_abs_err": err,
+          "bitwise_repeat": True,
+          "k7_bitwise_equal_k4_pages": [64, 128, 256, 512]})
+
+
 def phase_matvec(engine, device) -> dict:
     """The tier matvec entry points (K3, K4; paged K6, K7)."""
     import torch
@@ -804,6 +865,8 @@ def phase_matvec(engine, device) -> dict:
                         "library_ms": time_ms(lib[name], flush),
                         "ops_ms": time_ms(entry, flush), "bytes": nbytes,
                         **bound(nbytes, flops)}
+                    if name == "K4":
+                        kernels[name].update(yardsticks(kernels[name]["ms"], nbytes, flush, device))
                     row.update({f"{name.lower()}_{k}": v for k, v in kernels[name].items()})
                 dense = dict(cache=cache, q=q, w=w, qf=qf, ws=ws, nv=nv, si=si, vo=vo,
                              lib=lib, flops=flops, k_mags=k_mags, v_mags=v_mags, k_cs=k_cs)
@@ -864,10 +927,14 @@ def phase_matvec(engine, device) -> dict:
                        "library_ms": time_ms(d["lib"][base], flush),
                        "ops_ms": time_ms(entry, flush), "bytes": nbytes,
                        **bound(nbytes, d["flops"])}
+            if name == "K7":
+                numbers.update(yardsticks(numbers["ms"], nbytes, flush, device))
             if page == 256:
                 kernels[name] = numbers
             row.update({f"{name.lower()}_{k}": v for k, v in numbers.items()})
         emit(row)
+
+    phase_matvec_wide(device, gen)
 
     # the slice's main path: the four entry points as a user calls them,
     # at the main shape (paged: pages of 256), counted from zero

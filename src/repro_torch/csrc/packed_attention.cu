@@ -81,15 +81,11 @@
 
 #include <cstdint>
 
-#include "unpack.cuh"
+#include "staging.cuh"  // cp.async staging, decode_chunk (K1), SPAN
 
 #define MAX_TIERS 6
 #define MAX_G 8
 #define MAX_D 256
-#define NTHREADS 256
-#define NWARPS (NTHREADS / 32)
-#define CHUNK 8            // consecutive tokens per lane
-#define SPAN (32 * CHUNK)  // tokens a block covers, one per thread
 static_assert(SPAN == NTHREADS, "the scores keep one token per thread");
 #define NEG_INF (-1e30f)
 
@@ -146,53 +142,6 @@ struct SmemLayout {
   int32_t run;      // tokens per staged run
   int32_t v_early;  // 1: V has its own space, copied before the scores
 };
-
-// ---------------------------------------------------------------------------
-// staging: cp.async into shared memory
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async(int lg, void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (lg == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-  else if (lg == 3)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy the first nb bytes of C rows, row c from src + c * src_stride to
-// dst + c * dst_stride (bytes), with the block's threads together: cp.async
-// in the widest of 16, 8 and 4 bytes that every address, stride and
-// length allows, plain byte copies below 4.
-__device__ __forceinline__ void stage_rows(char* dst, int dst_stride, const char* src,
-                                           int64_t src_stride, int C, int nb) {
-  const uint64_t a = reinterpret_cast<uint64_t>(src) | reinterpret_cast<uint64_t>(dst) |
-                     static_cast<uint64_t>(src_stride) | static_cast<uint64_t>(dst_stride) |
-                     static_cast<uint64_t>(nb);
-  if ((a & 3) == 0) {
-    const int lg = (a & 15) == 0 ? 4 : ((a & 7) == 0 ? 3 : 2);
-    const int per_row = nb >> lg;
-    for (int i = threadIdx.x; i < C * per_row; i += NTHREADS) {
-      const int c = i / per_row, k = (i - c * per_row) << lg;
-      cp_async(lg, dst + c * dst_stride + k, src + c * src_stride + k);
-    }
-  } else {
-    for (int i = threadIdx.x; i < C * nb; i += NTHREADS) {
-      const int c = i / nb, k = i - c * nb;
-      dst[c * dst_stride + k] = static_cast<char>(__ldg(src + c * src_stride + k));
-    }
-  }
-}
 
 // Where token l of batch row b lives: its storage row (batch row, or the
 // physical page) and its offset in that row.
@@ -261,37 +210,6 @@ __device__ __forceinline__ void stage_meta(const PackedAttnParams& p, char* dst,
 // ---------------------------------------------------------------------------
 // decode from shared memory
 // ---------------------------------------------------------------------------
-
-// The words of a lane's 8-token chunk, as one vector load where they span
-// more than one word (widths 8 and 16: 2 and 4 words, aligned).
-template <int NW>
-__device__ __forceinline__ void load_words(const uint32_t* src, uint32_t (&wd)[NW]) {
-  if constexpr (NW == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(src);
-    wd[0] = v.x, wd[1] = v.y, wd[2] = v.z, wd[3] = v.w;
-  } else if constexpr (NW == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(src);
-    wd[0] = v.x, wd[1] = v.y;
-  } else {
-    wd[0] = src[0];
-  }
-}
-
-// Channel c's chunk at t0 (a multiple of CHUNK) of one staged tier, decoded.
-template <int LW>
-__device__ __forceinline__ void decode_chunk(const char* pay, const int8_t* mins,
-                                             const uint8_t* sfts, int lp, int c, int t0,
-                                             float (&x)[CHUNK]) {
-  constexpr int NW = (CHUNK << LW) >= 32 ? (CHUNK << LW) / 32 : 1;
-  uint32_t wd[NW];
-  load_words<NW>(reinterpret_cast<const uint32_t*>(pay + c * ((SPAN << LW) >> 3)) +
-                     ((t0 << LW) >> 5),
-                 wd);
-  const int pk = t0 >> lp;
-  const int sh = (sfts[c * (SPAN >> (lp + 2)) + (pk >> 2)] >> ((pk & 3) * 2)) & 3;
-  const int mv = mins[c * (SPAN >> lp) + pk];
-  decode_tier_run<LW, CHUNK>(wd, t0, sh, mv, x);  // K1
-}
 
 // Scores: this lane's chunk at t0 summed over this warp's channels of one
 // tier (warp, warp + NWARPS, ... in order). sq: q of the tier's channels,
@@ -589,15 +507,13 @@ __global__ void __launch_bounds__(NTHREADS)
 
 static int align16(int x) { return (x + 15) & ~15; }
 
+// The current device's opt-in shared memory a block, less the kernel's
+// static shared memory (read on every launch: it is one attribute query).
 static int max_smem() {
-  static int v = 0;
-  if (!v) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    v -= 1024;  // the kernel's static shared memory
-  }
-  return v;
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return v - 1024;
 }
 
 // The dynamic shared memory of a launch: the fixed parts, K's tiers, then
@@ -639,13 +555,13 @@ static SmemLayout layout(const PackedAttnParams& p, bool paged) {
 template <bool PAGED, int GM>
 static cudaError_t launch_span(const PackedAttnParams& p, const SmemLayout& s, dim3 grid,
                                cudaStream_t st) {
-  static int configured = 48 * 1024;
   auto kernel = packed_attention_span_kernel<PAGED, GM>;
-  if (s.total > configured) {
+  // above 48 KB a launch needs the opt-in; set on every such launch (it
+  // is per device, and cheap), so a second device gets it too
+  if (s.total > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.total);
     if (e != cudaSuccess) return e;
-    configured = s.total;
   }
   kernel<<<grid, NTHREADS, s.total, st>>>(p, s);
   return cudaGetLastError();

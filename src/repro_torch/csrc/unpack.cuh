@@ -24,16 +24,27 @@
 // the shifts and masks are too. sh, mn: the pack's 2-bit shift and min.
 // Only l0's offset below one word is read, so l0 may be counted from the
 // row's start or from its page's.
+//
+// The integer never goes through an int-to-float conversion: stored << sh
+// (below 2^19) is OR'd into the mantissa of 2^23, and 2^23 - (half + mn) is
+// subtracted. Every operand and the result are integers below 2^24 in
+// magnitude, so the float is exactly (float)((stored << sh) + half + mn),
+// in 3 instructions a value where the conversion took 5.
 template <int LW, int N>
 __device__ __forceinline__ void decode_tier_run(const uint32_t* words, int l0, int sh,
                                                 int mn, float (&x)[N]) {
   constexpr int VPW_MASK = (1 << (5 - LW)) - 1;  // values per word - 1
   constexpr uint32_t VMASK = (1u << (1 << LW)) - 1u;
-  const int half = sh > 0 ? (1 << (sh - 1)) : 0;
+  constexpr int NW = (N << LW) >= 32 ? (N << LW) / 32 : 1;
+  const float off = 8388608.f - static_cast<float>((sh > 0 ? (1 << (sh - 1)) : 0) + mn);
+  const uint32_t mask = VMASK << sh;
+  uint64_t shifted[NW];  // each word << sh, its top bits kept
+#pragma unroll
+  for (int q = 0; q < NW; ++q) shifted[q] = static_cast<uint64_t>(words[q]) << sh;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    const uint32_t word = words[(k << LW) >> 5];
-    const int stored = static_cast<int>((word >> (((l0 + k) & VPW_MASK) << LW)) & VMASK);
-    x[k] = static_cast<float>((stored << sh) + half + mn);
+    const uint32_t v = static_cast<uint32_t>(shifted[(k << LW) >> 5] >>
+                                             (((l0 + k) & VPW_MASK) << LW));
+    x[k] = __uint_as_float((v & mask) | 0x4B000000u) - off;  // 0x4B000000: 2^23
   }
 }

@@ -23,6 +23,7 @@ import torch
 
 from ..core.tiered import TierBuffer
 from .packed_attention import (
+    SPAN,
     _check,
     _check_paged,
     _check_tiling,
@@ -128,6 +129,8 @@ class _Params(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in ("n_valid", "out", "page_table")]
         + [(f, ctypes.c_int64) for f in ("pt_sb", "page_size", "BH", "Hkv", "G",
                                          "C", "L", "log2_w", "log2_pack")]
+        + [(f, ctypes.c_void_p) for f in ("part", "counters")]
+        + [("S", ctypes.c_int64)]
     )
 
 
@@ -143,8 +146,9 @@ def _library():
         from .build import load
 
         lib = load("tier_matvec")
-        lib.tier_matvec_params_size.restype = ctypes.c_int
-        lib.tier_matvec_params_size.argtypes = []
+        for fn in (lib.tier_matvec_params_size, lib.tier_matvec_span):
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
         for name in _ENTRIES:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -153,6 +157,9 @@ def _library():
         if size != ctypes.sizeof(_Params):
             raise RuntimeError(f"kernel params are {size} bytes in C, "
                                f"{ctypes.sizeof(_Params)} in Python")
+        if lib.tier_matvec_span() != SPAN:
+            raise RuntimeError(f"the kernels' span is {lib.tier_matvec_span()} "
+                               f"tokens, {SPAN} in Python")
         _lib = lib
     return _lib
 
@@ -221,6 +228,7 @@ def _tier_params(payload, mins, shifts, x, n_valid, out, *, width: int,
         p.page_table, p.pt_sb, p.page_size = (page_table.data_ptr(),
                                               page_table.stride(0), page_size)
     p.BH, p.Hkv, p.G, p.C, p.L = BH, lead[0] if paged else 1, G, C, L
+    p.S = lead[1] if paged else BH  # storage rows: pool pages, or batch rows
     p.log2_w, p.log2_pack = width.bit_length() - 1, pack_size.bit_length() - 1
     return p, (n,)
 

@@ -356,14 +356,15 @@ _lib = None
 _counters: dict = {}
 
 
-def _arrivals(device, n: int) -> torch.Tensor:
-    """The span blocks' arrival counters for ``n`` (row, head) pairs: zero
-    between launches (the block that merges a row resets its counter), one
-    tensor per device, so launches on one stream at a time."""
-    c = _counters.get(device)
+def _arrivals(device, n: int, owner: str = "attention") -> torch.Tensor:
+    """The span blocks' arrival counters for ``n`` rows: zero between
+    launches (the block that merges a row resets its counter), one tensor
+    per kernel family (``owner``: K2/K5 here, K4/K7 in vpack_matvec.py) and
+    device, so launches on one stream at a time."""
+    c = _counters.get((owner, device))
     if c is None or c.numel() < n:
-        c = _counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                            device=device)
+        c = _counters[owner, device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                   device=device)
     return c
 
 

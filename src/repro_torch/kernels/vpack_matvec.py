@@ -7,9 +7,10 @@ matrix-vector kernel (Fig. 11). Each wrapper launches, on CUDA tensors,
 the hand-written CUDA kernel of ``csrc/tier_matvec.cu`` (bound in
 ``kpack_matvec.py``); on CPU tensors, and only there, it runs its plain
 version (``vpack_tier_out_torch`` / ``vpack_tier_out_paged_torch``, the
-Pallas kernels' tile loop, accumulating over tiles in order). The
-per-token V scale is folded into ``w`` and the zero term added outside
-(``kernels/ops.py``). Each wrapper counts its kernel launches in
+Pallas kernels' tile loop, accumulating over tiles in order; at the
+default tile of SPAN tokens that is also the kernel's split: span partials
+summed in span order). The per-token V scale is folded into ``w`` and the zero term added
+outside (``kernels/ops.py``). Each wrapper counts its kernel launches in
 ``.launches``.
 """
 from __future__ import annotations
@@ -26,7 +27,14 @@ from .kpack_matvec import (
     _tier_len,
     _tier_params,
 )
-from .packed_attention import _check_tiling, _launch, _paged_tile, _tier_window
+from .packed_attention import (
+    SPAN,
+    _arrivals,
+    _check_tiling,
+    _launch,
+    _paged_tile,
+    _tier_window,
+)
 from .unpack import decode_tier_tile
 
 
@@ -34,17 +42,27 @@ def _out_tiles(tile, w, n_valid, L: int, tile_l: int, width: int, pack: int,
                C: int) -> torch.Tensor:
     """The Pallas kernels' tile loop, every row at once: weights at or past
     n_valid count as zero, tiles past every row's count are skipped, and
-    the tiles' products are summed in order. Returns f32 [BH, G, C]."""
+    the tiles' products are summed in order. ``tile(t0, n)`` gives the
+    tier's (payload, mins, shifts) for the ``n`` tokens from ``t0`` as [BH,
+    C, ·]; a last tile past L is cut at L. Returns f32 [BH, G, C]."""
     BH, G, _ = w.shape
     n = None if n_valid is None else n_valid.to(torch.int64)
     out = torch.zeros((BH, G, C), dtype=torch.float32, device=w.device)
     for t0 in range(0, _n_live(n, L), tile_l):
-        vals = decode_tier_tile(*tile(t0), width, pack)  # [BH, C, TL]
-        wt = w[..., t0:t0 + tile_l].to(torch.float32)
+        tl = min(tile_l, L - t0)
+        vals = decode_tier_tile(*tile(t0, tl), width, pack)  # [BH, C, tl]
+        wt = w[..., t0:t0 + tl].to(torch.float32)
         if n is not None:
-            wt = torch.where(_live_mask(n, t0, tile_l), wt, 0.0)
+            wt = torch.where(_live_mask(n, t0, tl), wt, 0.0)
         out = out + torch.bmm(wt, vals.transpose(1, 2))
     return out
+
+
+def _dense_tile(payload, mins, shifts, width: int, pack: int):
+    """``tile(t0, n)`` of ``_out_tiles`` over dense leaves [BH, C, ·]."""
+    t = TierBuffer(payload, mins, shifts, width, pack)
+    return lambda t0, n: tuple(leaf[..., s] for leaf, s in
+                               zip((payload, mins, shifts), _tier_window(t, t0, n)))
 
 
 def vpack_tier_out_torch(payload, mins, shifts, w, *, width: int,
@@ -54,11 +72,8 @@ def vpack_tier_out_torch(payload, mins, shifts, w, *, width: int,
     ``vpack_tier_out``."""
     L = _tier_len(payload, width)
     tile_l = _check_tiling(L, pack_size, tile_l)
-    t = TierBuffer(payload, mins, shifts, width, pack_size)
-    tile = lambda t0: tuple(leaf[..., s] for leaf, s in
-                            zip((payload, mins, shifts), _tier_window(t, t0, tile_l)))
-    return _out_tiles(tile, w, n_valid, L, tile_l, width, pack_size,
-                      payload.shape[-2])
+    return _out_tiles(_dense_tile(payload, mins, shifts, width, pack_size), w, n_valid,
+                      L, tile_l, width, pack_size, payload.shape[-2])
 
 
 def vpack_tier_out_paged_torch(payload, mins, shifts, w, page_table, n_valid,
@@ -71,9 +86,34 @@ def vpack_tier_out_paged_torch(payload, mins, shifts, w, page_table, n_valid,
     tile_l = _check_paged_tier(payload, page_table, n_tokens, width,
                                pack_size, page_size, tile_l)
     t = TierBuffer(payload, mins, shifts, width, pack_size)
-    tile = lambda t0: _paged_tile(t, t0, tile_l, page_table, page_size)
+    tile = lambda t0, n: _paged_tile(t, t0, n, page_table, page_size)
     return _out_tiles(tile, w, n_valid, n_tokens, tile_l, width, pack_size,
                       payload.shape[-2])
+
+
+def _launch_out(wrapper, entry: str, payload, mins, shifts, w, n_valid, *,
+                width: int, pack_size: int, L: int, units: int, page_table=None,
+                page_size: int = 0) -> torch.Tensor:
+    """Check K4/K7's inputs, allocate the output and the span partials,
+    and launch the library's ``entry`` on the current stream, counted in
+    ``wrapper.launches``."""
+    BH, G = w.shape[:2]
+    C = payload.shape[-2]
+    out = torch.empty((BH, G, C), dtype=torch.float32, device=w.device)
+    p, keep = _tier_params(payload, mins, shifts, w, n_valid, out, width=width,
+                           pack_size=pack_size, L=L, units=units, x_len=L,
+                           page_table=page_table, page_size=page_size, vec4=True)
+    if not out.numel():
+        return out
+    n_spans = -(-L // SPAN)
+    if n_spans > 1:
+        part = torch.empty((BH, n_spans, G, C), dtype=torch.float32, device=w.device)
+        p.part = part.data_ptr()
+    p.counters = _arrivals(w.device, BH, "vpack").data_ptr()
+    lib = _library()
+    wrapper.launches += 1
+    _launch(getattr(lib, entry), p, w, wrapper.__name__)
+    return out
 
 
 def vpack_tier_out(payload: torch.Tensor, mins: torch.Tensor,
@@ -85,7 +125,7 @@ def vpack_tier_out(payload: torch.Tensor, mins: torch.Tensor,
 
     payload: int32 [BH, C, L*width/32]; mins: i8 [BH, C, L/pack]; shifts:
     u8 [BH, C, ceil(L/pack/4)]; w: f32 [BH, G, L] whose rows start on
-    16-byte boundaries (the kernel reads float4); n_valid: optional int
+    16-byte boundaries (the kernel copies it in 16-byte pieces); n_valid: optional int
     [BH] (weights at or past it count as zero, and those tokens are never
     decoded). Returns out f32 [BH, G, C], summed in a fixed order (two
     launches are bitwise equal).
@@ -99,16 +139,8 @@ def vpack_tier_out(payload: torch.Tensor, mins: torch.Tensor,
                                     tile_l=tile_l)
     L = _tier_len(payload, width)
     _check_tiling(L, pack_size, tile_l)
-    BH, G = w.shape[:2]
-    out = torch.empty((BH, G, payload.shape[-2]), dtype=torch.float32,
-                      device=w.device)
-    p, keep = _tier_params(payload, mins, shifts, w, n_valid, out, width=width,
-                           pack_size=pack_size, L=L, units=L, x_len=L, vec4=True)
-    if out.numel():
-        lib = _library()
-        vpack_tier_out.launches += 1
-        _launch(lib.vpack_out_launch, p, w, "vpack_tier_out")
-    return out
+    return _launch_out(vpack_tier_out, "vpack_out_launch", payload, mins, shifts,
+                       w, n_valid, width=width, pack_size=pack_size, L=L, units=L)
 
 
 vpack_tier_out.launches = 0
@@ -137,18 +169,10 @@ def vpack_tier_out_paged(payload: torch.Tensor, mins: torch.Tensor,
     n_tokens = w.shape[-1]
     _check_paged_tier(payload, page_table, n_tokens, width, pack_size,
                       page_size, tile_l)
-    BH, G = w.shape[:2]
-    out = torch.empty((BH, G, payload.shape[-2]), dtype=torch.float32,
-                      device=w.device)
-    p, keep = _tier_params(payload, mins, shifts, w, n_valid, out, width=width,
-                           pack_size=pack_size, L=n_tokens, units=page_size,
-                           x_len=n_tokens, page_table=page_table,
-                           page_size=page_size, vec4=True)
-    if out.numel():
-        lib = _library()
-        vpack_tier_out_paged.launches += 1
-        _launch(lib.vpack_out_paged_launch, p, w, "vpack_tier_out_paged")
-    return out
+    return _launch_out(vpack_tier_out_paged, "vpack_out_paged_launch", payload,
+                       mins, shifts, w, n_valid, width=width, pack_size=pack_size,
+                       L=n_tokens, units=page_size, page_table=page_table,
+                       page_size=page_size)
 
 
 vpack_tier_out_paged.launches = 0

@@ -1,8 +1,10 @@
 """Where K2's time goes on the card: the kernel with parts of it cut out.
 
-  PYTHONPATH=src python -m repro_torch.launch.k2_breakdown
+  PYTHONPATH=src python -m repro_torch.launch.k2_breakdown [--source FILE ...]
 
-Builds ``csrc/packed_attention.cu`` as committed and four variants of it,
+Builds ``csrc/packed_attention.cu`` as committed (or each ``--source``,
+beside the headers of its own directory: an older copy of ``csrc/`` times
+an earlier version in the same process) and four variants of it,
 each with one more part removed by a text edit of the source (the
 variants compute wrong values; only their times mean anything):
 
@@ -30,6 +32,7 @@ import json
 import statistics
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -49,21 +52,26 @@ VARIANTS = {"full": [], "no_merge": [_MERGE], "no_v": [_MERGE, _V_LOOP],
             "copies_only": [_MERGE, _V_LOOP, _K_LOOP], "empty": [_EXIT]}
 
 
-def _build(out: Path) -> dict[str, Path]:
-    """Compile every variant, one nvcc each, all started together."""
-    src = (build.CSRC / "packed_attention.cu").read_text()
+def build_variants(src: Path, variants: dict, out: Path) -> dict[str, Path]:
+    """Compile each variant of the CUDA source file ``src`` (its edits, as
+    (old, new) pairs, applied in order) into ``out/<variant>/lib.so`` beside
+    a copy of the headers of ``src``'s directory, one nvcc each, all
+    started together; the ptxas log goes to ``lib.log`` beside it."""
+    text = src.read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
-        cu = src
+    for name, edits in variants.items():
+        cu = text
         for old, new in edits:
             if old not in cu:
                 raise RuntimeError(f"{name}: the source no longer holds {old!r}")
             cu = cu.replace(old, new, 1)
         d = out / name
         d.mkdir(parents=True)
-        (d / "packed_attention.cu").write_text(cu)
-        cmd = [build.nvcc(), *build.FLAGS, "-I", str(build.CSRC), "-o",
-               str(d / "lib.so"), str(d / "packed_attention.cu")]
+        for header in src.parent.glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
+        (d / "kernel.cu").write_text(cu)
+        cmd = [build.nvcc(), *build.FLAGS, "-I", str(d), "-o", str(d / "lib.so"),
+               str(d / "kernel.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -71,6 +79,7 @@ def _build(out: Path) -> dict[str, Path]:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        (out / name / "lib.log").write_text(log)  # ptxas: registers, spills
         libs[name] = out / name / "lib.so"
     return libs
 
@@ -85,7 +94,7 @@ def _bind(path: Path) -> ctypes.CDLL:
     return lib
 
 
-def _time_ms(fn, flush, reps: int = 20) -> float:
+def time_ms(fn, flush, reps: int = 20) -> float:
     """chip_smoke.time_ms: median over reps, L2 flushed, ~2 ms spin first."""
     for _ in range(3):
         fn()
@@ -105,6 +114,9 @@ def _time_ms(fn, flush, reps: int = 20) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--source", action="append", type=Path,
+                    help="a packed_attention.cu to time, built beside the headers of "
+                         "its directory (repeatable; default: csrc/)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--flush", choices=("write", "read"), default="write")
@@ -131,17 +143,21 @@ def main(argv=None) -> int:
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_ if args.flush == "write" else flush_buf.max
     call = lambda: pa.fused_packed_attention(q, cache.k, cache.v, cache.n_comp, D ** -0.5)
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = {name: _bind(path) for name, path in _build(Path(tmp)).items()}
+    sources = args.source or [build.CSRC / "packed_attention.cu"]
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor() as pool:
+        built = pool.map(lambda i: build_variants(sources[i], VARIANTS, Path(tmp) / str(i)),
+                         range(len(sources)))
+        libs = {f"{i}:{name}" if len(sources) > 1 else name: _bind(path)
+                for i, paths in enumerate(built) for name, path in paths.items()}
         saved = pa._lib
         try:
             for rnd in range(args.rounds):
                 row = {"round": rnd, "flush": args.flush, "bytes": nbytes,
-                       "torch_sum_ms": _time_ms(lambda: x.sum(), flush),
-                       "empty_launch_ms": _time_ms(lambda: torch.cuda._sleep(0), flush)}
-                for name, lib in libs.items():
-                    pa._lib = lib
-                    row[f"{name}_ms"] = _time_ms(call, flush)
+                       "torch_sum_ms": time_ms(lambda: x.sum(), flush),
+                       "empty_launch_ms": time_ms(lambda: torch.cuda._sleep(0), flush)}
+                for name in (list(libs) if rnd % 2 == 0 else list(libs)[::-1]):
+                    pa._lib = libs[name]
+                    row[f"{name}_ms"] = time_ms(call, flush)
                 print(json.dumps(row), flush=True)
         finally:
             pa._lib = saved

@@ -260,23 +260,25 @@ def _close_bound(got, want, mag, n: int):
     ((1, 2, 4, 8), (32, 32, 32, 32), 8, 1),
     ((4, 16), (96, 32), 16, 1),
     ((4,), (128,), 8, 4),
+    ((16,), (256,), 8, 8),  # 8 channel groups of K4/K7: more than are in flight
 ])
 def test_tier_matvec_kernels_match_plain_and_paged(cuda, widths, counts, pack, G):
     """K3 and K4 per tier over ragged rows (one empty): within the bound
-    of their plain versions and bitwise equal over two launches; K6 and K7
-    on the pages scattered under a shuffled table (pages 256 and 512)
-    bitwise equal to K3 and K4 on the dense cache, and within the bound
-    of their own plain versions."""
+    of their plain versions and bitwise equal over two launches, K4 over bucket views of 512 and 128
+    tokens bitwise equal to K4 over the capacity; K6 and K7 on the pages scattered
+    under a shuffled table (pages 64, 128, 256 and 512) bitwise equal to
+    K3 and K4 on the dense cache and to themselves, and within the bound
+    of their own plain versions. The head dim is the spec's channels."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     spec = tt.TierSpec(widths, counts, pack)
-    B, Hkv, L = 4, 4, 1024
-    cache = _random_cache(gen, B, Hkv, 128, L, spec, (1024, 0, 300, 700), cuda)
+    B, Hkv, L, D = 4, 4, 1024, sum(counts)
+    cache = _random_cache(gen, B, Hkv, D, L, spec, (1024, 0, 300, 700), cuda)
     BH = B * Hkv
     nv = _rows_to_bh(cache.n_comp, B, Hkv, cuda)
-    q = torch.randn((BH, G, 128), generator=gen, device=cuda)
+    q = torch.randn((BH, G, D), generator=gen, device=cuda)
     w = torch.rand((BH, G, L), generator=gen, device=cuda)
     flat = lambda a: a.reshape(BH, *a.shape[2:])
-    pools = {page: _to_pool(cache, page, gen) for page in (256, 512)}
+    pools = {page: _to_pool(cache, page, gen) for page in (64, 128, 256, 512)}
     off = 0
     for i, (t, c) in enumerate(zip(cache.k.tiers, counts)):
         leaves = tuple(flat(x) for x in (t.payload, t.mins, t.shifts))
@@ -296,6 +298,17 @@ def test_tier_matvec_kernels_match_plain_and_paged(cuda, widths, counts, pack, G
         _close_bound(s, kpack_tier_scores_torch(*leaves, qt, **kw), mag_s, c)
         _close_bound(o, vpack_tier_out_torch(*leaves, w, **kw), mag_o, L)
         assert not s[Hkv:2 * Hkv].any() and not o[Hkv:2 * Hkv].any()  # empty row
+        # K4 over a bucket view equals K4 over the capacity with the counts
+        # cut to the bucket (512: tensor copies of strided rows; 128: a run
+        # shorter than a span, by cp.async)
+        for bucket in (512, 128):
+            bt = tc.slice_compressed(cache, bucket).k.tiers[i]
+            nb = torch.clamp(nv, max=bucket)
+            sliced = vpack_tier_out(*(flat(x) for x in (bt.payload, bt.mins, bt.shifts)),
+                                    w[..., :bucket], width=t.width, pack_size=pack, n_valid=nb)
+            full = vpack_tier_out(*leaves, w, width=t.width, pack_size=pack, n_valid=nb)
+            torch.cuda.synchronize()
+            assert torch.equal(sliced, full), bucket
         for page, paged in pools.items():
             pt = paged.k.tiers[i]
             pleaves = (pt.payload, pt.mins, pt.shifts)
@@ -304,12 +317,63 @@ def test_tier_matvec_kernels_match_plain_and_paged(cuda, widths, counts, pack, G
             ps = kpack_tier_scores_paged(*pleaves, qt, table, nv, L, **pkw)
             po = vpack_tier_out_paged(*pleaves, w, table, nv, **pkw)
             ps2 = kpack_tier_scores_paged(*pleaves, qt, table, nv, L, **pkw)
+            po2 = vpack_tier_out_paged(*pleaves, w, table, nv, **pkw)
             torch.cuda.synchronize()
-            assert torch.equal(ps, s) and torch.equal(po, o) and torch.equal(ps, ps2)
+            assert torch.equal(ps, s) and torch.equal(po, o), page
+            assert torch.equal(ps, ps2) and torch.equal(po, po2), page
             _close_bound(ps, kpack_tier_scores_paged_torch(*pleaves, qt, table, nv, L, **pkw),
                          mag_s, c)
             _close_bound(po, vpack_tier_out_paged_torch(*pleaves, w, table, nv, **pkw),
                          mag_o, L)
+
+
+def _every_shift_and_min(BH, C, L, width, pack, gen, device):
+    """Tier leaves [BH, C, ·] whose packs run through every (2-bit shift,
+    int8 min) pair in turn (pack i of the flattened rows takes pair i mod
+    1024), with random payload words."""
+    npk = L // pack
+    i = torch.arange(BH * C * npk, device=device).reshape(BH, C, npk)
+    mins = ((i // 4) % 256 - 128).to(torch.int8)
+    sh = (i % 4).reshape(BH, C, npk // 4, 4)
+    shifts = (sh << torch.arange(0, 8, 2, device=device)).sum(-1).to(torch.uint8)
+    payload = torch.randint(-2 ** 31, 2 ** 31, (BH, C, L * width // 32), generator=gen,
+                            device=device, dtype=torch.int64).to(torch.int32)
+    return payload, mins, shifts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [8, 16])
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16])
+def test_k1_decode_bitwise_every_width_shift_min(cuda, width, pack):
+    """K1 (csrc/unpack.cuh::decode_tier_run, inlined in every kernel) as
+    K3 and K4 run it, bitwise against the plain decode (unpack_tier), at
+    every width and pack, every shift and every min. A one-hot operand
+    makes a kernel's output the decoded integers themselves: every other
+    product is 0 and adding 0 is exact in any order. K3 with q one-hot
+    over channels reads every (channel, token) of the tier, C / G launches;
+    K4 with w one-hot over tokens reads every channel of one token of each
+    pack, at a position within the pack that moves with the row."""
+    gen = torch.Generator(device=cuda).manual_seed(width * 100 + pack)
+    BH, C, L, G = 4, 64, 512, 8
+    leaves = _every_shift_and_min(BH, C, L, width, pack, gen, cuda)
+    kw = dict(width=width, pack_size=pack)
+    want = tt.unpack_tier(tt.TierBuffer(*leaves, width, pack), L).to(torch.float32)
+    sh = (leaves[2].to(torch.int64)[..., None] >> torch.arange(0, 8, 2, device=cuda)) & 3
+    assert len(set(zip(leaves[1].flatten().tolist(), sh.flatten().tolist()))) == 1024
+    eye = torch.eye(C, device=cuda)
+    for k in range(C // G):  # K3: channels kG .. kG + G - 1 of every row
+        q = eye[k * G:(k + 1) * G].expand(BH, G, C).contiguous()
+        s = kpack_tier_scores(*leaves, q, **kw)
+        assert torch.equal(s, want[:, k * G:(k + 1) * G]), k
+    npk = L // pack
+    rows = torch.arange(BH, device=cuda)[:, None]
+    for k in range(npk // G):  # K4: packs kG .. kG + G - 1, one token each
+        tok = (k * G + torch.arange(G, device=cuda))[None, :] * pack + (rows + k) % pack
+        w = torch.zeros((BH, G, L), device=cuda)
+        w.scatter_(2, tok[..., None], 1.0)
+        o = vpack_tier_out(*leaves, w, **kw)
+        assert torch.equal(o, torch.gather(want, 2, tok[:, None, :].expand(BH, C, G))
+                           .transpose(1, 2)), k
 
 
 @pytest.mark.gpu
