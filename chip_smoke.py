@@ -60,14 +60,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      backend; at the main shape timed (as K2) beside the plain version,
      the byte bound and torch.bmm over the dequantized bf16 K or V (the
      uncompressed cuBLAS yardstick; the port never calls it), and the
-     whole entry-point call; K4 and K7 also beside an empty launch and a
-     torch.sum over as many bytes as each must move (their ratios to
-     both). Paged half (matvec_paged), pages 256 and 512 under a shuffled
+     whole entry-point call, beside an empty launch and a torch.sum over
+     as many bytes as each must move (their ratios to both); each row
+     gives the launches (span blocks, live, shared memory, registers).
+     Paged half (matvec_paged), pages 256 and 512 under a shuffled
      table: K6 and K7 bitwise equal to K3 and K4 on the dense cache and to
      themselves, timed likewise. A wide spec (matvec_wide: one width-16
-     tier of 256 channels, G=8, more channel groups than K4/K7 keep in
-     flight): K4 within the bound of its plain version, bitwise equal to
-     itself, K7 at pages 64, 128, 256 and 512 bitwise equal to it. Then the
+     tier of 256 channels, G=8, more channel groups than the kernels keep
+     in flight): K3 and K4 within the bound of their plain versions,
+     bitwise equal to themselves, K6 and K7 at pages 64, 128, 256 and 512
+     bitwise equal to them. Then the
      main path (matvec_path): the four entry points called once each with
      every launch count set to 0 first; each kernel must have launched.
 
@@ -210,27 +212,13 @@ def held_to(got, want) -> None:
     torch.testing.assert_close(norm(got[0], got[2]), norm(want[0], want[2]), **TOL)
 
 
-def ptxas_regs() -> dict:
-    """Registers per thread of each K2/K5 kernel, from the ``-Xptxas -v``
-    log of the packed_attention build: {instantiation: registers}."""
-    import re
-
+def ptxas_usage() -> dict:
+    """Registers per thread and spill-store bytes of every kernel
+    instantiation of both libraries, from their ``-Xptxas -v`` build
+    logs: {``name<args>``: {"regs": r, "spill_bytes": s}}."""
     from repro_torch.kernels import build
 
-    names = {"ILb0ELi1E": "span_dense_G1", "ILb1ELi1E": "span_paged_G1",
-             "ILb0ELi4E": "span_dense_G4"}
-    log = build.lib_path("packed_attention").with_suffix(".log")
-    regs, fn = {}, None
-    for line in (log.read_text().splitlines() if log.exists() else []):
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn:
-            for key, name in names.items():
-                if key in fn:
-                    regs[name] = int(m.group(1))
-    return regs
+    return {k: v for name in build.LIBRARIES for k, v in build.built_usage(name).items()}
 
 
 def launch_shape(cache, lengths, G: int, L: int, paged: bool) -> dict:
@@ -240,12 +228,32 @@ def launch_shape(cache, lengths, G: int, L: int, paged: bool) -> dict:
     from repro_torch.kernels.packed_attention import SPAN, kernel_smem_bytes
 
     h_kv = cache.k.scale.shape[1]  # the dense cache
-    regs = ptxas_regs()
-    key = f"span_{'paged' if paged else 'dense'}_G{G}"
+    key = f"packed_attention_span_kernel<{str(paged).lower()},{G}>"
     return {"blocks": len(lengths) * h_kv * -(-L // SPAN),
             "live_blocks": h_kv * sum(-(-min(x, L) // SPAN) for x in lengths),
             "threads": 256, "smem_bytes": kernel_smem_bytes(cache.k, cache.v, G),
-            "regs": regs.get(key)}
+            "regs": ptxas_usage().get(key, {}).get("regs")}
+
+
+def tier_launches(scores: bool, spec, G: int, L: int, lengths, h_kv: int,
+                  paged: bool) -> list:
+    """K3/K6's (``scores``) or K4/K7's launch for each tier of ``spec``:
+    span blocks in the grid and live (the rest write zeros or exit at
+    once), dynamic shared memory per block, registers per thread and
+    spill bytes of its instantiation (tier width, G rounded up to 1, 2, 4
+    or 8)."""
+    from repro_torch.kernels.kpack_matvec import tier_smem_bytes
+    from repro_torch.kernels.packed_attention import SPAN
+
+    usage = ptxas_usage()
+    kernel = "kpack_span_kernel" if scores else "vpack_span_kernel"
+    gm = next(m for m in (1, 2, 4, 8) if G <= m)
+    return [{"width": w, "C": c, "blocks": len(lengths) * h_kv * -(-L // SPAN),
+             "live_blocks": h_kv * sum(-(-min(x, L) // SPAN) for x in lengths),
+             "threads": 256, "smem_bytes": tier_smem_bytes(w, spec.pack_size, c, G, scores=scores),
+             **usage.get(f"{kernel}<{str(paged).lower()},{w.bit_length() - 1},{gm}>",
+                         {"regs": None, "spill_bytes": None})}
+            for w, c in zip(spec.widths, spec.counts)]
 
 
 def phase_kernel(engine, device) -> dict:
@@ -710,13 +718,19 @@ def yardsticks(ms: float, nbytes: int, flush, device) -> dict:
 
 
 def phase_matvec_wide(device, gen) -> None:
-    """K4 and K7 at a spec with more channel groups than they keep in
-    flight (one width-16 tier of 256 channels, G=8): within the f32 bound
-    of its plain version, bitwise equal over two launches, K7 at pages
-    64, 128, 256 and 512 bitwise equal to K4 on the gathered view."""
+    """The four tier matvecs at a spec with more channel groups than they
+    keep in flight (one width-16 tier of 256 channels, G=8): K3 and K4
+    within the f32 bound of their plain versions, bitwise equal over two
+    launches, K6 and K7 at pages 64, 128, 256 and 512 bitwise equal to K3
+    and K4 on the gathered view."""
     import torch
 
     from repro_torch.core.tiered import TierSpec, unpack_tier
+    from repro_torch.kernels.kpack_matvec import (
+        kpack_tier_scores,
+        kpack_tier_scores_paged,
+        kpack_tier_scores_torch,
+    )
     from repro_torch.kernels.packed_attention import _rows_to_bh
     from repro_torch.kernels.vpack_matvec import (
         vpack_tier_out,
@@ -728,29 +742,41 @@ def phase_matvec_wide(device, gen) -> None:
     B, h_kv, G, D, L = 4, 4, 8, 256, 2048
     cache = ragged_cache(spec, spec, B, h_kv, D, L, LENGTHS, gen)
     BH = B * h_kv
-    t = cache.v.tiers[0]
-    leaves = tuple(x.reshape(BH, *x.shape[2:]) for x in (t.payload, t.mins, t.shifts))
+    flat = lambda t: tuple(x.reshape(BH, *x.shape[2:]) for x in (t.payload, t.mins, t.shifts))
+    kt, vt = cache.k.tiers[0], cache.v.tiers[0]
+    kl, vl = flat(kt), flat(vt)
+    q = torch.randn((BH, G, D), generator=gen, device=device)
     w = torch.softmax(torch.randn((BH, G, L), generator=gen, device=device), -1)
     nv = _rows_to_bh(cache.n_comp, B, h_kv, device)
     kw = dict(width=16, pack_size=8)
-    got = vpack_tier_out(*leaves, w, n_valid=nv, **kw)
-    again = vpack_tier_out(*leaves, w, n_valid=nv, **kw)
+    s3, again3 = (kpack_tier_scores(*kl, q, n_valid=nv, **kw) for _ in range(2))
+    got, again = (vpack_tier_out(*vl, w, n_valid=nv, **kw) for _ in range(2))
     torch.cuda.synchronize()
+    check(torch.equal(s3, again3), "wide spec: two K3 launches differ")
     check(torch.equal(got, again), "wide spec: two K4 launches differ")
-    mag = torch.bmm(w.abs(), unpack_tier(t, L).reshape(BH, 256, L).float().abs().transpose(1, 2))
-    err = within_bound(got, vpack_tier_out_torch(*leaves, w, n_valid=nv, **kw), mag, L)
+    ints = lambda t: unpack_tier(t, L).reshape(BH, 256, L).float().abs()
+    err3 = within_bound(s3, kpack_tier_scores_torch(*kl, q, n_valid=nv, **kw),
+                        torch.bmm(q.abs(), ints(kt)), 256)
+    mag = torch.bmm(w.abs(), ints(vt).transpose(1, 2))
+    err = within_bound(got, vpack_tier_out_torch(*vl, w, n_valid=nv, **kw), mag, L)
     for page in (64, 128, 256, 512):
         pool = to_pool(cache, page, gen)
-        pt = pool.v.tiers[0]
-        paged = vpack_tier_out_paged(pt.payload, pt.mins, pt.shifts, w, pool.pages.page_table,
-                                     nv, page_size=page, **kw)
+        pk, pv = pool.k.tiers[0], pool.v.tiers[0]
+        table = pool.pages.page_table
+        s6 = kpack_tier_scores_paged(pk.payload, pk.mins, pk.shifts, q, table, nv, L,
+                                     page_size=page, **kw)
+        paged = vpack_tier_out_paged(pv.payload, pv.mins, pv.shifts, w, table, nv,
+                                     page_size=page, **kw)
         torch.cuda.synchronize()
+        check(torch.equal(s6, s3), f"wide spec, page {page}: K6 != K3")
         check(torch.equal(paged, got), f"wide spec, page {page}: K7 != K4")
         del pool
-    emit({"phase": "matvec_wide", "v_spec": [spec.widths, spec.counts], "pack": 8, "B": B,
-          "H_kv": h_kv, "G": G, "L": L, "n_valid": list(LENGTHS), "k4_max_abs_err": err,
-          "bitwise_repeat": True,
-          "k7_bitwise_equal_k4_pages": [64, 128, 256, 512]})
+    emit({"phase": "matvec_wide", "spec": [spec.widths, spec.counts], "pack": 8, "B": B,
+          "H_kv": h_kv, "G": G, "L": L, "n_valid": list(LENGTHS), "k3_max_abs_err": err3,
+          "k4_max_abs_err": err, "bitwise_repeat": True,
+          "k6_k7_bitwise_equal_k3_k4_pages": [64, 128, 256, 512],
+          "launch": {"k3": tier_launches(True, spec, G, L, LENGTHS, h_kv, False),
+                     "k4": tier_launches(False, spec, G, L, LENGTHS, h_kv, False)}})
 
 
 def phase_matvec(engine, device) -> dict:
@@ -835,7 +861,9 @@ def phase_matvec(engine, device) -> dict:
                    "H_kv": h_kv, "G": G, "D": D, "L": L, "n_valid": n_rows,
                    "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
                    "k3_max_abs_err": err3, "k4_max_abs_err": err4,
-                   "bitwise_repeat": True, "ops_fused_vs_ref": "within rtol 1e-5 atol 1e-4"}
+                   "bitwise_repeat": True, "ops_fused_vs_ref": "within rtol 1e-5 atol 1e-4",
+                   "launch": {"k3": tier_launches(True, ks, G, L, n_rows, h_kv, False),
+                              "k4": tier_launches(False, vs, G, L, n_rows, h_kv, False)}}
             if main:
                 # bytes each must move: the live tiers; K3 q and the whole
                 # score bucket, K4 the live weights and its output
@@ -865,8 +893,7 @@ def phase_matvec(engine, device) -> dict:
                         "library_ms": time_ms(lib[name], flush),
                         "ops_ms": time_ms(entry, flush), "bytes": nbytes,
                         **bound(nbytes, flops)}
-                    if name == "K4":
-                        kernels[name].update(yardsticks(kernels[name]["ms"], nbytes, flush, device))
+                    kernels[name].update(yardsticks(kernels[name]["ms"], nbytes, flush, device))
                     row.update({f"{name.lower()}_{k}": v for k, v in kernels[name].items()})
                 dense = dict(cache=cache, q=q, w=w, qf=qf, ws=ws, nv=nv, si=si, vo=vo,
                              lib=lib, flops=flops, k_mags=k_mags, v_mags=v_mags, k_cs=k_cs)
@@ -917,7 +944,9 @@ def phase_matvec(engine, device) -> dict:
         table_bytes = sum(-(-x // page) for x in LENGTHS) * h_kv * 4
         row = {"phase": "matvec_paged", "page_size": page, "B": B, "H_kv": h_kv,
                "G": G, "D": D, "n_tokens": L, "n_valid": list(LENGTHS),
-               "bitwise_repeat": True, "bitwise_equal_dense_gathered": True}
+               "bitwise_repeat": True, "bitwise_equal_dense_gathered": True,
+               "launch": {"k6": tier_launches(True, cache.k.spec, G, L, LENGTHS, h_kv, True),
+                          "k7": tier_launches(False, cache.v.spec, G, L, LENGTHS, h_kv, True)}}
         for name, fn, plain, entry, base in (
                 ("K6", k6, lambda: k6(kpack_tier_scores_paged_torch), s_ops, "K3"),
                 ("K7", k7, lambda: k7(vpack_tier_out_paged_torch), o_ops, "K4")):
@@ -927,8 +956,7 @@ def phase_matvec(engine, device) -> dict:
                        "library_ms": time_ms(d["lib"][base], flush),
                        "ops_ms": time_ms(entry, flush), "bytes": nbytes,
                        **bound(nbytes, d["flops"])}
-            if name == "K7":
-                numbers.update(yardsticks(numbers["ms"], nbytes, flush, device))
+            numbers.update(yardsticks(numbers["ms"], nbytes, flush, device))
             if page == 256:
                 kernels[name] = numbers
             row.update({f"{name.lower()}_{k}": v for k, v in numbers.items()})

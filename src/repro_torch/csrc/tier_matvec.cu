@@ -34,56 +34,66 @@
 // Both kernels are templated on the tier width (LW = log2 width), so the
 // decode's shifts and masks are constants.
 //
-// Design.
-//   * K3/K6: one 256-thread block per (row, 256-token span). Warp w takes
-//     the channels w, w + 8, ..., lane j the span's 8-token chunk j: for
-//     each channel the warp reads one coalesced run of the channel row
-//     (the loads of 4 channels in flight together), decodes its chunk once
-//     per word, min and shift, and FMAs with q[c] from shared memory into
-//     8 partial scores; the warps' partials of each token are then added
-//     in warp order through shared memory. A span at or past n_valid
-//     writes zeros only.
+// Design. Both are one 256-thread block per (row, 256-token span), the
+// same producer warp and ring in front of consumers that differ in what
+// they sum over.
+//   * The producer (warp 7) first copies the block's small operand (K3:
+//     q, G x C f32; K4: the span's w, G x SPAN f32) and then the span's
+//     tier bytes into a ring of MAX_STAGES buffers, a group of CG = 32
+//     channels each, so shared memory stays bounded whatever the spec (a
+//     width-16 tier of 256 channels is ~141 KB a span); an mbarrier per
+//     buffer completes when its group has landed, another when the
+//     consumers are done with it. Payload and mins come by one tensor copy
+//     (TMA) each a group where a run is the whole span and the layout is
+//     16-byte aligned, by cp.async otherwise; the shifts (8 or 4 bytes a
+//     row) by cp.async. Issuing cp.asyncs for a group took the producer
+//     ~2.6 us (their issue is throttled), so the groups landed no faster
+//     than one block could decode them; two tensor copies issue at once.
+//     Warps 0-6 are the consumers: warp w takes the channel quads w, w + 7,
+//     ... of the tier as their groups land, lane j the span's 8-token chunk
+//     j, and decodes each row of a quad from shared memory (K1).
+//   * K3/K6 (PR 13's block per span had every warp load its channels'
+//     words straight into registers, 4 channels in flight a warp, 64
+//     accumulators live whatever G, and a dead-span block per 256 tokens):
+//     a lane FMAs each decoded row with q[g][c] into its chunk's GM x 8
+//     partial scores, so a warp sums its channels in channel order; after
+//     the last group the 7 warps' partials go through shared memory (the
+//     ring, reused) and are added in warp order, written as float4s, zero
+//     at and past n_valid. A span block owns its tokens outright: no span
+//     partials, no counter, no atomic. A span at or past n_valid writes its
+//     zeros and exits.
 //   * K4/K7 (PR 13's warp per (row, channel) ran at 10x its bound: its
 //     decode and w loads followed its tier loads, the 16 channel-group
 //     blocks of a row each re-read w, a quarter of its blocks belonged to
-//     dead rows). One 256-thread block per (row, 256-token span); a span at
-//     or past n_valid exits at once, and span 0 of an empty row writes its
-//     zeros. Warp 7 is the producer: it copies the span's w (G x SPAN f32)
-//     and then the span's tier bytes into a ring of MAX_STAGES buffers, a
-//     group of CG = 32 channels each, so shared memory stays bounded
-//     whatever the spec (a width-16 tier of 256 channels is ~141 KB a
-//     span); an mbarrier per buffer completes when its group has landed,
-//     another when the consumers are done with it. Payload and mins come
-//     by one tensor copy (TMA) each a group where a run is the whole span
-//     and the layout is 16-byte aligned, by cp.async otherwise; the shifts
-//     (8 or 4 bytes a row) by cp.async. Issuing cp.asyncs for a group took
-//     the producer ~2.6 us (their issue is throttled), so the groups landed
-//     no faster than one block could decode them; two tensor copies issue
-//     at once. Warps 0-6 are the consumers: warp w takes the channel quads
-//     w, w + 7, ... of the tier as their groups land, lane j the span's
-//     8-token chunk j; it decodes the quad's four rows from shared memory
-//     (K1) and FMAs each in token order with its chunk of w, held in
-//     registers (zero at and past n_valid); a fixed transposed butterfly
-//     sums the quad over the lanes (6 shuffles for 4 channels). A row of
-//     one live span writes its output; longer rows write span partials
-//     [BH, n_spans, G, C] and the row's last span block to finish (an
-//     atomic counts arrivals, never values) sums them in span order and
-//     resets its counter, so the counters ([BH] int32, zero between
-//     launches) serve the launches of one stream at a time.
-//   A chunk never straddles a payload word, a pack or a page. No atomic
-//   accumulates a value: two launches are bitwise equal. K7 stages a span
-//   in runs of at most a page (the largest power of two <= SPAN dividing
-//   the page, or the bucket when dense), each resolving page_table[b, l /
-//   page] once; the runs only move bytes, so K7 on a pool equals K4 on the
-//   gathered view bitwise at every page size, and K4 over a bucket view
-//   equals K4 over the full capacity.
-// Left on the table: K3 reads q from shared memory once per (channel,
-// chunk) and stages nothing. K4/K7 at the calibrated spec are now bound by
-// the consumers' decode (~4 instructions a value and ~3 more a channel
-// chunk; launch/matvec_breakdown.py) and by the chain launch, n_valid, first
-// group, last group, fence, atomic, merge; at G = 1 the V matvec is a GEMV
-// no tensor core helps; a row's span partials make a second trip through
-// L2; pages under 256 tokens stage by cp.async.
+//     dead rows): a lane FMAs each decoded row with its chunk of w, held in
+//     registers (zero at and past n_valid), and a fixed transposed
+//     butterfly sums a quad over the lanes (6 shuffles for 4 channels). A
+//     span at or past n_valid exits at once, and span 0 of an empty row
+//     writes its zeros. A row of one live span writes its output; longer
+//     rows write span partials [BH, n_spans, G, C] and the row's last span
+//     block to finish (an atomic counts arrivals, never values) sums them
+//     in span order and resets its counter, so the counters ([BH] int32,
+//     zero between launches) serve the launches of one stream at a time.
+//   Both are templated on GM, the group size G rounded up to 1, 2, 4 or 8,
+//   so a lane holds GM x 8 accumulators (K3) or weights (K4), and on the
+//   tier width. A chunk never straddles a payload word, a pack or a page.
+//   No atomic accumulates a value: two launches are bitwise equal. A span
+//   is staged in runs of at most a page (the largest power of two <= SPAN
+//   dividing the page, or the bucket when dense), each resolving
+//   page_table[b, l / page] once; the runs only move bytes, so K6/K7 on a
+//   pool equal K3/K4 on the gathered view bitwise at every page size, and
+//   K3/K4 over a bucket view equal K3/K4 over the full capacity.
+// Left on the table: both are bound by the consumers' decode (~4
+// instructions a value and ~3 more a channel chunk) about as much as by the
+// copies, and by the launch: at the main shape K3's copies alone take ~14
+// us, its decode alone ~15, the whole ~17.5 (launch/matvec_breakdown.py).
+// The producer warp decoding a share of the quads too was ~1 us slower
+// (each warp then took one quad a group and waited on every group). K4/K7
+// also wait on the chain launch, n_valid, first group, last group, fence,
+// atomic, merge. At G <= 8 a matvec is a GEMV no tensor core helps; a row's
+// span partials (K4) make a second trip through L2; pages under 256 tokens
+// stage by cp.async; at GM = 2 the 64 registers of four blocks an SM spill
+// a few dozen bytes.
 #include <cuda.h>  // CUtensorMap (the map is encoded through the runtime's entry point)
 #include <cuda_runtime.h>
 
@@ -93,11 +103,9 @@
 
 #define MAX_G 8
 #define MAX_C 256
-static_assert(SPAN == NTHREADS, "K3 writes one token per thread");
-#define KUNROLL 4     // K3/K6: channels per warp whose loads are in flight together
-#define CG 32         // K4/K7: channels per staged group
-#define MAX_STAGES 4  // K4/K7: groups whose copies are in flight at once
-#define PRODUCER (NWARPS - 1)  // K4/K7: the warp that issues the copies
+#define CG 32                  // channels per staged group
+#define MAX_STAGES 4           // groups whose copies are in flight at once
+#define PRODUCER (NWARPS - 1)  // the warp that issues the copies
 
 // Strides are in elements; every leaf's last axis is contiguous. "ss"
 // steps a storage row (dense: a (batch row, head) row; paged: a pool
@@ -141,117 +149,22 @@ __device__ __forceinline__ int clamp_n(const TierMatvecParams& p, int r) {
   return n < 0 ? 0 : (n > p.L ? static_cast<int>(p.L) : n);
 }
 
-// One channel row's 8-token chunk: the words it spans, its pack's min and
-// 2-bit shift (a chunk lies in one pack: pack_size >= CHUNK and chunks are
-// aligned), loaded from storage row s, head h, offset ll0 (locate).
-template <int LW>
-struct Chunk {
-  static constexpr int LVPW = 5 - LW;  // log2(values per word)
-  static constexpr int NW = (CHUNK << LW) >= 32 ? (CHUNK << LW) / 32 : 1;
-  uint32_t wd[NW];
-  int sh, mv;
-
-  __device__ __forceinline__ void load(const TierMatvecParams& p, int64_t s, int h,
-                                       int ll0, int c) {
-    const int32_t* pay = p.payload + s * p.pay_ss + h * p.pay_sh + c * p.pay_sc + (ll0 >> LVPW);
-    const int pk = ll0 >> static_cast<int>(p.log2_pack);
-#pragma unroll
-    for (int q = 0; q < NW; ++q) wd[q] = static_cast<uint32_t>(__ldg(pay + q));
-    sh = (__ldg(p.shifts + s * p.sft_ss + h * p.sft_sh + c * p.sft_sc + (pk >> 2)) >>
-          ((pk & 3) * 2)) & 3;
-    mv = static_cast<int>(__ldg(p.mins + s * p.min_ss + h * p.min_sh + c * p.min_sc + pk));
-  }
-
-  __device__ __forceinline__ void decode(int l0, float (&x)[CHUNK]) const {
-    decode_tier_run<LW, CHUNK>(wd, l0, sh, mv, x);  // K1, unpack.cuh
-  }
-};
-
-template <bool PAGED, int LW>
-__global__ void __launch_bounds__(NTHREADS)
-    kpack_scores_kernel(const TierMatvecParams p) {
-  __shared__ float s_q[MAX_G][MAX_C];
-  __shared__ __align__(16) float s_part[NWARPS][SPAN];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = blockIdx.x;
-  const int span0 = static_cast<int>(blockIdx.y) * SPAN;
-  const int G = static_cast<int>(p.G), C = static_cast<int>(p.C);
-  const int L = static_cast<int>(p.L);
-  const int n = clamp_n(p, r);
-  float* out = p.out + static_cast<int64_t>(r) * G * L;
-  const int t = span0 + threadIdx.x;  // the token this thread writes
-  if (span0 >= n) {  // dead span: exact zeros, nothing decoded
-    if (t < L)
-      for (int g = 0; g < G; ++g) out[static_cast<int64_t>(g) * L + t] = 0.f;
-    return;
-  }
-  const float* q = p.x + r * p.x_sr;
-  for (int i = threadIdx.x; i < G * C; i += NTHREADS) {
-    const int g = i / C, c = i % C;
-    s_q[g][c] = q[g * p.x_sg + c];
-  }
-  __syncthreads();
-  // this lane's chunk of the span, summed over this warp's channels
-  // warp, warp + NWARPS, ... in order
-  const int l0 = span0 + lane * CHUNK;
-  float part[MAX_G][CHUNK];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g)
-#pragma unroll
-    for (int k = 0; k < CHUNK; ++k) part[g][k] = 0.f;
-  if (l0 < n) {
-    int64_t s;
-    int h, ll0;
-    locate<PAGED>(p, r, l0, s, h, ll0);
-    for (int c0 = warp; c0 < C; c0 += NWARPS * KUNROLL) {
-      Chunk<LW> ch[KUNROLL];
-#pragma unroll
-      for (int u = 0; u < KUNROLL; ++u)
-        if (c0 + u * NWARPS < C) ch[u].load(p, s, h, ll0, c0 + u * NWARPS);
-#pragma unroll
-      for (int u = 0; u < KUNROLL; ++u) {
-        const int c = c0 + u * NWARPS;
-        if (c >= C) break;
-        float x[CHUNK];
-        ch[u].decode(l0, x);
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < G) {
-            const float qc = s_q[g][c];
-#pragma unroll
-            for (int k = 0; k < CHUNK; ++k) part[g][k] = fmaf(qc, x[k], part[g][k]);
-          }
-      }
-    }
-  }
-  // the warps' partial sums of each token, added in warp order
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    if (g >= G) break;
-    float4* dst = reinterpret_cast<float4*>(&s_part[warp][lane * CHUNK]);
-    dst[0] = make_float4(part[g][0], part[g][1], part[g][2], part[g][3]);
-    dst[1] = make_float4(part[g][4], part[g][5], part[g][6], part[g][7]);
-    __syncthreads();
-    if (t < L) {
-      float si = s_part[0][threadIdx.x];
-#pragma unroll
-      for (int w = 1; w < NWARPS; ++w) si += s_part[w][threadIdx.x];
-      out[static_cast<int64_t>(g) * L + t] = t < n ? si : 0.f;
-    }
-    __syncthreads();
-  }
-}
-
-// K4/K7's dynamic shared memory: w [G][SPAN] f32, then a ring of `stages`
-// buffers, each one channel group's staged tier bytes (a payload, a min
-// and a shift row per channel). Set by the host (v_layout()).
-struct VLayout {
+// The dynamic shared memory of a span block, set by the host
+// (tier_layout()): the block's small operand x (K3/K6: q [G][xs], xs = C
+// rounded up to 4 floats; K4/K7: w [G][SPAN]) from 0, then from `ring` a
+// ring of `stages` buffers, each one channel group's staged tier bytes (a
+// payload, a min and a shift row per channel). K3/K6 reuse the ring for
+// the consumer warps' partial scores [NWARPS - 1][G][SPAN] f32 once every
+// group is done.
+struct TierLayout {
   int32_t mn, sft;  // offsets of the mins and shifts within a group buffer
   int32_t group;    // bytes of a group buffer
   int32_t stages;   // group buffers, and groups in flight at once
   int32_t total;
-  int32_t run;  // tokens per staged run
-  int32_t tma;  // 1: payload and mins by one tensor copy each a group
+  int32_t run;   // tokens per staged run
+  int32_t tma;   // 1: payload and mins by one tensor copy each a group
+  int32_t xs;    // floats a row of x
+  int32_t ring;  // offset of the ring (a multiple of 128 bytes)
 };
 
 // A tensor copy (TMA) of the box at coordinates (x, y, z, w) of map into
@@ -271,7 +184,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
 // payload and mins by a tensor copy each where the layout allows it (one
 // run a span; bar counts their bytes), cp.async otherwise.
 template <bool PAGED, int LW>
-__device__ __forceinline__ void stage_group(const TierMatvecParams& p, const VLayout& lay,
+__device__ __forceinline__ void stage_group(const TierMatvecParams& p, const TierLayout& lay,
                                             const CUtensorMap* tm_pay, const CUtensorMap* tm_min,
                                             char* buf, int r, int s0, int n, int c0, int nc,
                                             uint64_t* bar, int lane) {
@@ -300,6 +213,27 @@ __device__ __forceinline__ void stage_group(const TierMatvecParams& p, const VLa
                reinterpret_cast<const char*>(p.shifts + s * p.sft_ss + h * p.sft_sh +
                                              c0 * p.sft_sc + (ll >> (lp + 2))),
                p.sft_sc, nc, lay.run >> (lp + 2), lane, 32);
+  }
+}
+
+// The producer warp's loop: each channel group of row r's span from s0
+// into the next ring buffer, once the consumers are done with it
+// (empty[slot]); full[slot] completes when the group, and every copy this
+// warp issued before it (the block's x), has landed.
+template <bool PAGED, int LW>
+__device__ __forceinline__ void produce_groups(const TierMatvecParams& p, const TierLayout& lay,
+                                               const CUtensorMap* tm_pay,
+                                               const CUtensorMap* tm_min, char* bufs,
+                                               uint64_t* full, uint64_t* empty, int r, int s0,
+                                               int n, int lane) {
+  const int C = static_cast<int>(p.C), ngroups = (C + CG - 1) / CG;
+  for (int gi = 0; gi < ngroups; ++gi) {
+    const int slot = gi % lay.stages;
+    if (gi >= lay.stages) mbar_wait(&empty[slot], (gi / lay.stages - 1) & 1);
+    stage_group<PAGED, LW>(p, lay, tm_pay, tm_min, bufs + slot * lay.group, r, s0, n, gi * CG,
+                           min(CG, C - gi * CG), &full[slot], lane);
+    cp_async_mbar_arrive(&full[slot]);
+    mbar_arrive(&full[slot]);
   }
 }
 
@@ -335,7 +269,7 @@ __device__ __forceinline__ void merge_spans(const TierMatvecParams& p, int r, in
 // blocks in one wave; at GM >= 4 the weights alone take 32-64 registers.
 template <bool PAGED, int LW, int GM>
 __global__ void __launch_bounds__(NTHREADS, GM > 2 ? 2 : 4)
-    vpack_span_kernel(const TierMatvecParams p, const VLayout lay,
+    vpack_span_kernel(const TierMatvecParams p, const TierLayout lay,
                       const __grid_constant__ CUtensorMap tm_pay,
                       const __grid_constant__ CUtensorMap tm_min) {
   extern __shared__ __align__(128) char smem[];  // tensor copies land on 128 bytes
@@ -355,7 +289,7 @@ __global__ void __launch_bounds__(NTHREADS, GM > 2 ? 2 : 4)
   const int nsp = (n + SPAN - 1) / SPAN;
   const int ngroups = (C + CG - 1) / CG;
   float* s_w = reinterpret_cast<float*>(smem);
-  char* bufs = smem + G * SPAN * 4;
+  char* bufs = smem + lay.ring;
   if (warp == PRODUCER)  // w of the live chunks, before anything waits
     stage_rows(smem, SPAN * 4, reinterpret_cast<const char*>(p.x + r * p.x_sr + s0),
                p.x_sg * 4, G, ((nt + CHUNK - 1) & ~(CHUNK - 1)) * 4, lane, 32);
@@ -368,17 +302,8 @@ __global__ void __launch_bounds__(NTHREADS, GM > 2 ? 2 : 4)
 
   float* dst = p.out + static_cast<int64_t>(r) * G * C;  // one span: the output
   if (nsp > 1) dst = p.part + (static_cast<int64_t>(r) * gridDim.y + blockIdx.y) * G * C;
-  if (warp == PRODUCER) {
-    // the copies, group after group into the ring (w went first, above);
-    // full[slot] completes when a group, and every copy before it, has landed
-    for (int gi = 0; gi < ngroups; ++gi) {
-      const int slot = gi % lay.stages;
-      if (gi >= lay.stages) mbar_wait(&empty[slot], (gi / lay.stages - 1) & 1);
-      stage_group<PAGED, LW>(p, lay, &tm_pay, &tm_min, bufs + slot * lay.group, r, s0, n,
-                             gi * CG, min(CG, C - gi * CG), &full[slot], lane);
-      cp_async_mbar_arrive(&full[slot]);
-      mbar_arrive(&full[slot]);
-    }
+  if (warp == PRODUCER) {  // the tier's groups into the ring (w went first, above)
+    produce_groups<PAGED, LW>(p, lay, &tm_pay, &tm_min, bufs, full, empty, r, s0, n, lane);
   } else {
     // consumer warp cw: the quads of channels cw, cw + 7, ... of the tier
     // (4 channels each), a group at a time; lane j the span's chunk t0,
@@ -456,24 +381,120 @@ __global__ void __launch_bounds__(NTHREADS, GM > 2 ? 2 : 4)
   if (tid == 0) p.counters[r] = 0;
 }
 
-// K3/K6: one instantiation per tier width, log2 of 1, 2, 4, 8, 16 = 0..4.
-#define LAUNCH_BY_WIDTH(KERNEL)                                           \
-  switch (p->log2_w) {                                                    \
-    case 0: KERNEL<PAGED, 0><<<grid, NTHREADS, 0, st>>>(*p); break;       \
-    case 1: KERNEL<PAGED, 1><<<grid, NTHREADS, 0, st>>>(*p); break;       \
-    case 2: KERNEL<PAGED, 2><<<grid, NTHREADS, 0, st>>>(*p); break;       \
-    case 3: KERNEL<PAGED, 3><<<grid, NTHREADS, 0, st>>>(*p); break;       \
-    case 4: KERNEL<PAGED, 4><<<grid, NTHREADS, 0, st>>>(*p); break;       \
-    default: return static_cast<int>(cudaErrorInvalidValue);             \
-  }                                                                       \
-  return static_cast<int>(cudaGetLastError())
+// One wave holds the main shape's 480 live span blocks at four blocks an
+// SM (64 registers) for G <= 2; at GM >= 4 the accumulators alone take
+// 32-64 registers.
+template <bool PAGED, int LW, int GM>
+__global__ void __launch_bounds__(NTHREADS, GM > 2 ? 2 : 4)
+    kpack_span_kernel(const TierMatvecParams p, const TierLayout lay,
+                      const __grid_constant__ CUtensorMap tm_pay,
+                      const __grid_constant__ CUtensorMap tm_min) {
+  extern __shared__ __align__(128) char smem[];  // tensor copies land on 128 bytes
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = blockIdx.x;
+  const int s0 = static_cast<int>(blockIdx.y) * SPAN;
+  const int G = static_cast<int>(p.G), C = static_cast<int>(p.C);
+  const int L = static_cast<int>(p.L);
+  const int n = clamp_n(p, r);
+  float* out = p.out + static_cast<int64_t>(r) * G * L + s0;  // the span's scores
+  const int nq = min(SPAN, L - s0) >> 2;  // float4s a span row (L is a multiple of 32)
+  if (s0 >= n) {  // K3: a dead span: exact zeros, nothing decoded
+    for (int i = tid; i < G * nq; i += NTHREADS) {
+      const int g = i / nq;
+      reinterpret_cast<float4*>(out + g * L)[i - g * nq] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  // K3: a live span
+  const int nt = min(SPAN, n - s0);  // its live tokens
+  const int ngroups = (C + CG - 1) / CG;
+  const float* s_q = reinterpret_cast<const float*>(smem);
+  char* bufs = smem + lay.ring;
+  if (warp == PRODUCER)  // q, before anything waits
+    stage_rows(smem, lay.xs * 4, reinterpret_cast<const char*>(p.x + r * p.x_sr), p.x_sg * 4, G,
+               C * 4, lane, 32);
+  if (tid < lay.stages) {
+    mbar_init(&full[tid], 32);          // the producer's lanes
+    mbar_init(&empty[tid], NWARPS - 1);  // a lane of each consumer warp
+  }
+  fence_mbar_init();
+  __syncthreads();
 
-template <bool PAGED>
-static int launch_scores(const TierMatvecParams* p, void* stream) {
-  const dim3 grid(static_cast<unsigned>(p->BH),
-                  static_cast<unsigned>((p->L + SPAN - 1) / SPAN));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  LAUNCH_BY_WIDTH(kpack_scores_kernel);
+  // a consumer lane's partial scores of its chunk over its warp's channels
+  float part[GM][CHUNK];
+#pragma unroll
+  for (int g = 0; g < GM; ++g)
+#pragma unroll
+    for (int k = 0; k < CHUNK; ++k) part[g][k] = 0.f;
+  if (warp == PRODUCER) {  // the tier's groups into the ring (q went first, above)
+    produce_groups<PAGED, LW>(p, lay, &tm_pay, &tm_min, bufs, full, empty, r, s0, n, lane);
+  } else {
+    // consumer warp cw: the quads of channels cw, cw + 7, ... of the tier
+    // (4 channels each, in channel order), a group at a time; lane j the
+    // span's chunk t0
+    const int t0 = lane * CHUNK;
+    const bool live = t0 < nt;
+    const int lp = static_cast<int>(p.log2_pack);
+    int qd = warp;
+    for (int gi = 0; gi < ngroups; ++gi) {
+      const int slot = gi % lay.stages;
+      mbar_wait(&full[slot], (gi / lay.stages) & 1);
+      const char* buf = bufs + slot * lay.group;
+      const int8_t* mins = reinterpret_cast<const int8_t*>(buf + lay.mn);
+      const uint8_t* sfts = reinterpret_cast<const uint8_t*>(buf + lay.sft);
+      const int c0 = gi * CG, nc = min(CG, C - c0);
+      for (; 4 * qd < c0 + nc; qd += NWARPS - 1) {  // the warp's quads in this group
+        const int cq = 4 * qd - c0;
+        if (live) {  // K3: decode and FMA
+          // all four rows, branch-free: the buffer holds CG rows, and a row
+          // at or past nc is decoded and added times 0 (exact: a partial is
+          // never -0)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float x[CHUNK];
+            decode_chunk<LW>(buf, mins, sfts, lp, cq + j, t0, x);  // K3: decode
+#pragma unroll
+            for (int g = 0; g < GM; ++g) {
+              const float qc = g < G && cq + j < nc ? s_q[g * lay.xs + 4 * qd + j] : 0.f;
+#pragma unroll
+              for (int k = 0; k < CHUNK; ++k) part[g][k] = fmaf(qc, x[k], part[g][k]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);  // this warp is done with the buffer
+    }
+  }
+  // K3: the warps' partials, added in warp order
+  __syncthreads();  // every group is consumed: the ring is free
+  float* s_part = reinterpret_cast<float*>(bufs);  // [NWARPS - 1][G][SPAN]
+  if (warp != PRODUCER) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) {
+        float4* dst = reinterpret_cast<float4*>(s_part + (warp * G + g) * SPAN + lane * CHUNK);
+        dst[0] = make_float4(part[g][0], part[g][1], part[g][2], part[g][3]);
+        dst[1] = make_float4(part[g][4], part[g][5], part[g][6], part[g][7]);
+      }
+  }
+  __syncthreads();
+  for (int i = tid; i < G * nq; i += NTHREADS) {
+    const int g = i / nq, t = (i - g * nq) * 4;  // tokens s0 + t .. s0 + t + 3
+    const float4* src = reinterpret_cast<const float4*>(s_part + g * SPAN + t);
+    float4 a = src[0];
+#pragma unroll
+    for (int w = 1; w < NWARPS - 1; ++w) {
+      const float4 b = src[w * G * (SPAN / 4)];
+      a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+    }
+    if (t >= nt) a.x = 0.f;
+    if (t + 1 >= nt) a.y = 0.f;
+    if (t + 2 >= nt) a.z = 0.f;
+    if (t + 3 >= nt) a.w = 0.f;
+    reinterpret_cast<float4*>(out + g * L)[t >> 2] = a;
+  }
 }
 
 // The current device's opt-in shared memory a block, less the kernel's
@@ -485,16 +506,23 @@ static int max_smem() {
   return v - 1024;
 }
 
-// K4/K7's shared memory: w, then min(groups, MAX_STAGES) group buffers.
-static VLayout v_layout(const TierMatvecParams& p, bool paged) {
-  VLayout s{};
+// A span block's shared memory (TierLayout): x, then min(groups,
+// MAX_STAGES) group buffers; for K3/K6 (scores) at least room for the
+// consumer warps' partials there.
+static TierLayout tier_layout(const TierMatvecParams& p, bool paged, bool scores) {
+  TierLayout s{};
   const int lw = static_cast<int>(p.log2_w), lp = static_cast<int>(p.log2_pack);
+  const int G = static_cast<int>(p.G);
   s.mn = CG * ((SPAN << lw) >> 3);  // every part a multiple of 16 bytes
   s.sft = s.mn + CG * (SPAN >> lp);
   s.group = s.sft + CG * (SPAN >> (lp + 2));
   const int groups = static_cast<int>((p.C + CG - 1) / CG);
   s.stages = groups < MAX_STAGES ? groups : MAX_STAGES;
-  s.total = static_cast<int>(p.G) * SPAN * 4 + s.stages * s.group;
+  s.xs = scores ? (static_cast<int>(p.C) + 3) & ~3 : SPAN;
+  s.ring = (G * s.xs * 4 + 127) & ~127;
+  int ring = s.stages * s.group;
+  if (scores && ring < (NWARPS - 1) * G * SPAN * 4) ring = (NWARPS - 1) * G * SPAN * 4;
+  s.total = s.ring + ring;
   const int64_t unit = paged ? p.page_size : p.L;
   s.run = SPAN;
   while (unit % s.run) s.run >>= 1;
@@ -542,9 +570,9 @@ static bool encode_leaf(CUtensorMap* map, const void* base, CUtensorMapDataType 
 }
 
 template <bool PAGED, int LW, int GM>
-static cudaError_t launch_v(const TierMatvecParams& p, const VLayout& s, dim3 grid,
-                            cudaStream_t st) {
-  auto kernel = vpack_span_kernel<PAGED, LW, GM>;
+static cudaError_t launch_span(const TierMatvecParams& p, const TierLayout& s, bool scores,
+                               dim3 grid, cudaStream_t st) {
+  auto kernel = scores ? &kpack_span_kernel<PAGED, LW, GM> : &vpack_span_kernel<PAGED, LW, GM>;
   // above 48 KB a launch needs the opt-in; set on every such launch (it
   // is per device, and cheap), so a second device gets it too
   if (s.total > 48 * 1024) {
@@ -567,21 +595,26 @@ static cudaError_t launch_v(const TierMatvecParams& p, const VLayout& s, dim3 gr
 }
 
 template <bool PAGED, int GM>
-static cudaError_t launch_v_width(const TierMatvecParams& p, const VLayout& s, dim3 grid,
-                                  cudaStream_t st) {
+static cudaError_t launch_width(const TierMatvecParams& p, const TierLayout& s, bool scores,
+                                dim3 grid, cudaStream_t st) {
   switch (p.log2_w) {
-    case 0: return launch_v<PAGED, 0, GM>(p, s, grid, st);
-    case 1: return launch_v<PAGED, 1, GM>(p, s, grid, st);
-    case 2: return launch_v<PAGED, 2, GM>(p, s, grid, st);
-    case 3: return launch_v<PAGED, 3, GM>(p, s, grid, st);
-    case 4: return launch_v<PAGED, 4, GM>(p, s, grid, st);
+    case 0: return launch_span<PAGED, 0, GM>(p, s, scores, grid, st);
+    case 1: return launch_span<PAGED, 1, GM>(p, s, scores, grid, st);
+    case 2: return launch_span<PAGED, 2, GM>(p, s, scores, grid, st);
+    case 3: return launch_span<PAGED, 3, GM>(p, s, scores, grid, st);
+    case 4: return launch_span<PAGED, 4, GM>(p, s, scores, grid, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// K3/K6 (scores) or K4/K7: a block per (row, span), the instantiation of
+// the tier width and of G rounded up to 1, 2, 4 or 8. Refuses what the
+// kernels cannot take: more shared memory than a block has, runs shorter
+// than a shift byte's 4 packs or a 1-bit word's 32 tokens, G > MAX_G, C >
+// MAX_C.
 template <bool PAGED>
-static int launch_out(const TierMatvecParams* p, void* stream) {
-  const VLayout s = v_layout(*p, PAGED);
+static int launch_tier(const TierMatvecParams* p, void* stream, bool scores) {
+  const TierLayout s = tier_layout(*p, PAGED, scores);
   if (s.total > max_smem() || s.run < (4 << p->log2_pack) || s.run < 32 || p->G > MAX_G ||
       p->C > MAX_C)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -589,13 +622,13 @@ static int launch_out(const TierMatvecParams* p, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (p->G == 1)
-    e = launch_v_width<PAGED, 1>(*p, s, grid, st);
+    e = launch_width<PAGED, 1>(*p, s, scores, grid, st);
   else if (p->G == 2)
-    e = launch_v_width<PAGED, 2>(*p, s, grid, st);
+    e = launch_width<PAGED, 2>(*p, s, scores, grid, st);
   else if (p->G <= 4)
-    e = launch_v_width<PAGED, 4>(*p, s, grid, st);
+    e = launch_width<PAGED, 4>(*p, s, scores, grid, st);
   else
-    e = launch_v_width<PAGED, 8>(*p, s, grid, st);
+    e = launch_width<PAGED, 8>(*p, s, scores, grid, st);
   return static_cast<int>(e);
 }
 
@@ -605,22 +638,28 @@ extern "C" int tier_matvec_params_size() {
 
 extern "C" int tier_matvec_span() { return SPAN; }
 
+// Dynamic shared memory of a span block of K3/K6 (scores != 0) or K4/K7
+// at p's tier width, pack, G and C, in bytes.
+extern "C" int tier_matvec_smem_bytes(const TierMatvecParams* p, int scores) {
+  return tier_layout(*p, false, scores != 0).total;
+}
+
 // Launch on `stream`; return cudaGetLastError() (0 on success). The
 // callers check shapes, types and strides (kernels/kpack_matvec.py,
 // kernels/vpack_matvec.py); for K4/K7 they allocate p->part and pass
 // zeroed p->counters.
 extern "C" int kpack_scores_launch(const TierMatvecParams* p, void* stream) {
-  return launch_scores<false>(p, stream);  // K3
+  return launch_tier<false>(p, stream, true);  // K3
 }
 
 extern "C" int kpack_scores_paged_launch(const TierMatvecParams* p, void* stream) {
-  return launch_scores<true>(p, stream);  // K6
+  return launch_tier<true>(p, stream, true);  // K6
 }
 
 extern "C" int vpack_out_launch(const TierMatvecParams* p, void* stream) {
-  return launch_out<false>(p, stream);  // K4
+  return launch_tier<false>(p, stream, false);  // K4
 }
 
 extern "C" int vpack_out_paged_launch(const TierMatvecParams* p, void* stream) {
-  return launch_out<true>(p, stream);  // K7
+  return launch_tier<true>(p, stream, false);  // K7
 }

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -90,3 +91,47 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
         _loaded[name] = ctypes.CDLL(str(path))
     return _loaded[name]
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as ``name<args>`` (``_Z17vpack_span_kernel
+    ILb0ELi2ELi1EE...`` -> ``vpack_span_kernel<false,2,1>``): its bool and
+    int template arguments only, which is all the kernels here take."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    rest = mangled[start + int(m.group(1)):]
+    t = re.match(r"I((?:L[bi]-?\d+E)+)E", rest)
+    if not t:
+        return name
+    args = [("true" if v == "1" else "false") if k == "b" else v
+            for k, v in re.findall(r"L([bi])(-?\d+)E", t.group(1))]
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """Registers per thread and bytes of spill stores of each kernel of
+    an ``-Xptxas -v`` log, keyed by ``kernel_name``: {name: {"regs": r,
+    "spill_bytes": s}}."""
+    usage, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = kernel_name(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = {"regs": int(m.group(1)), "spill_bytes": spill}
+            fn = None
+    return usage
+
+
+def built_usage(name: str) -> dict[str, dict]:
+    """``ptxas_usage`` of library ``name`` as built for the current
+    sources ({} before it is built)."""
+    log = lib_path(name).with_suffix(".log")
+    return ptxas_usage(log.read_text()) if log.exists() else {}

@@ -5,7 +5,11 @@ The torch port of ``repro/kernels/kpack_matvec.py::kpack_tier_scores``
 (K3) and ``::kpack_tier_scores_paged`` (K6), the paper's standalone K
 matrix-vector kernel (Fig. 8). Each wrapper launches, on CUDA tensors, the
 hand-written CUDA kernel of ``csrc/tier_matvec.cu`` (one body, templated on
-dense or paged addressing; tier decode from ``csrc/unpack.cuh`` inlined);
+dense or paged addressing, tier width and group size: a block per (row,
+256-token span), a producer warp staging q and then the tier's channel
+groups into shared memory, by tensor copies where the layout allows, so
+the storage rows ``S`` go along for the tensor maps; tier decode from
+``csrc/unpack.cuh`` inlined);
 on CPU tensors, and only there, it runs its plain version
 (``kpack_tier_scores_torch`` / ``kpack_tier_scores_paged_torch``, the
 Pallas kernels' tile loop). The per-token scale and zero are folded in
@@ -153,6 +157,8 @@ def _library():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.tier_matvec_smem_bytes.restype = ctypes.c_int
+        lib.tier_matvec_smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
         size = lib.tier_matvec_params_size()
         if size != ctypes.sizeof(_Params):
             raise RuntimeError(f"kernel params are {size} bytes in C, "
@@ -162,6 +168,17 @@ def _library():
                                f"tokens, {SPAN} in Python")
         _lib = lib
     return _lib
+
+
+def tier_smem_bytes(width: int, pack_size: int, C: int, G: int, *,
+                    scores: bool) -> int:
+    """Dynamic shared memory of one span block of K3/K6 (``scores``) or
+    K4/K7 for a tier of ``C`` channels at this width and pack and group
+    size G, in bytes (the layout in csrc/tier_matvec.cu)."""
+    p = _Params()
+    p.G, p.C = G, C
+    p.log2_w, p.log2_pack = width.bit_length() - 1, pack_size.bit_length() - 1
+    return _library().tier_matvec_smem_bytes(ctypes.addressof(p), int(scores))
 
 
 def _tier_params(payload, mins, shifts, x, n_valid, out, *, width: int,

@@ -53,17 +53,21 @@ VARIANTS = {"full": [], "no_merge": [_MERGE], "no_v": [_MERGE, _V_LOOP],
 
 
 def build_variants(src: Path, variants: dict, out: Path) -> dict[str, Path]:
-    """Compile each variant of the CUDA source file ``src`` (its edits, as
-    (old, new) pairs, applied in order) into ``out/<variant>/lib.so`` beside
-    a copy of the headers of ``src``'s directory, one nvcc each, all
-    started together; the ptxas log goes to ``lib.log`` beside it."""
+    """Compile each variant of the CUDA source file ``src`` (its edits
+    applied in order) into ``out/<variant>/lib.so`` beside a copy of the
+    headers of ``src``'s directory, one nvcc each, all started together;
+    the ptxas log goes to ``lib.log`` beside it. An edit is an (old, new)
+    pair, or a list of them for sources of different designs: the first
+    whose ``old`` the source holds is applied."""
     text = src.read_text()
     procs = {}
     for name, edits in variants.items():
         cu = text
-        for old, new in edits:
-            if old not in cu:
-                raise RuntimeError(f"{name}: the source no longer holds {old!r}")
+        for edit in edits:
+            pairs = edit if isinstance(edit, list) else [edit]
+            old, new = next(((o, n) for o, n in pairs if o in cu), (None, None))
+            if old is None:
+                raise RuntimeError(f"{name}: the source holds none of {[o for o, _ in pairs]!r}")
             cu = cu.replace(old, new, 1)
         d = out / name
         d.mkdir(parents=True)

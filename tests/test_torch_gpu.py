@@ -260,12 +260,15 @@ def _close_bound(got, want, mag, n: int):
     ((1, 2, 4, 8), (32, 32, 32, 32), 8, 1),
     ((4, 16), (96, 32), 16, 1),
     ((4,), (128,), 8, 4),
-    ((16,), (256,), 8, 8),  # 8 channel groups of K4/K7: more than are in flight
+    ((2, 8), (64, 64), 16, 2),
+    ((4,), (128,), 8, 3),  # G=3: the kernels' GM=4 instantiation
+    ((16,), (256,), 8, 8),  # 8 channel groups: more than are in flight
 ])
 def test_tier_matvec_kernels_match_plain_and_paged(cuda, widths, counts, pack, G):
     """K3 and K4 per tier over ragged rows (one empty): within the bound
-    of their plain versions and bitwise equal over two launches, K4 over bucket views of 512 and 128
-    tokens bitwise equal to K4 over the capacity; K6 and K7 on the pages scattered
+    of their plain versions and bitwise equal over two launches, K3 and K4
+    over bucket views of 512 and 128 tokens bitwise equal to K3 and K4
+    over the capacity; K6 and K7 on the pages scattered
     under a shuffled table (pages 64, 128, 256 and 512) bitwise equal to
     K3 and K4 on the dense cache and to themselves, and within the bound
     of their own plain versions. The head dim is the spec's channels."""
@@ -298,17 +301,21 @@ def test_tier_matvec_kernels_match_plain_and_paged(cuda, widths, counts, pack, G
         _close_bound(s, kpack_tier_scores_torch(*leaves, qt, **kw), mag_s, c)
         _close_bound(o, vpack_tier_out_torch(*leaves, w, **kw), mag_o, L)
         assert not s[Hkv:2 * Hkv].any() and not o[Hkv:2 * Hkv].any()  # empty row
-        # K4 over a bucket view equals K4 over the capacity with the counts
-        # cut to the bucket (512: tensor copies of strided rows; 128: a run
-        # shorter than a span, by cp.async)
+        # K3 and K4 over a bucket view equal K3 and K4 over the capacity
+        # with the counts cut to the bucket (512: tensor copies of strided
+        # rows; 128: a run shorter than a span, by cp.async)
         for bucket in (512, 128):
             bt = tc.slice_compressed(cache, bucket).k.tiers[i]
-            nb = torch.clamp(nv, max=bucket)
-            sliced = vpack_tier_out(*(flat(x) for x in (bt.payload, bt.mins, bt.shifts)),
-                                    w[..., :bucket], width=t.width, pack_size=pack, n_valid=nb)
-            full = vpack_tier_out(*leaves, w, width=t.width, pack_size=pack, n_valid=nb)
+            bleaves = tuple(flat(x) for x in (bt.payload, bt.mins, bt.shifts))
+            bkw = dict(width=t.width, pack_size=pack, n_valid=torch.clamp(nv, max=bucket))
+            sliced = vpack_tier_out(*bleaves, w[..., :bucket], **bkw)
+            full = vpack_tier_out(*leaves, w, **bkw)
+            s_sliced = kpack_tier_scores(*bleaves, qt, **bkw)
+            s_full = kpack_tier_scores(*leaves, qt, **bkw)
             torch.cuda.synchronize()
             assert torch.equal(sliced, full), bucket
+            assert torch.equal(s_sliced, s_full[..., :bucket]), bucket
+            assert not s_full[..., bucket:].any(), bucket
         for page, paged in pools.items():
             pt = paged.k.tiers[i]
             pleaves = (pt.payload, pt.mins, pt.shifts)
