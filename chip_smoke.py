@@ -11,7 +11,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      plain PyTorch version on the card, at llama2-7b decode shapes (B=4,
      H_kv=32, G=1, D=128, L=2048, ragged n_comp {0, 64, 1344, 2048}) under
      the serving engine's calibrated spec, a (1,2,4,8) spec and a width-16
-     spec, and at a GQA shape (H_kv=8, G=4): m, l and o / l within
+     spec, and under the calibrated specs at a GQA shape (H_kv=8, G=4), at
+     qwen3-32b's (H_kv=8, G=8, D=128) and at smollm-135m's (H_kv=3, G=3,
+     D=64; smollm-135m's own calibrated spec): m, l and o / l within
      rtol=1e-5, atol=1e-4 of the plain version and of the plain version with
      the kernel's split structure, the empty row exactly o = 0, m = -1e30,
      l = 0, two launches bitwise equal, and K2 over a 1024-token bucket view
@@ -24,10 +26,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   3. kernel_paged - the page-indexed kernel (K5) on the same calibrated
      caches scattered into a page pool under a shuffled page table, at
      page sizes 64, 128, 256 and 512 (a span covers several pages or part
-     of one): against its plain version (same tolerances), bitwise against
-     K2 on the gathered dense view, and bitwise against itself; timed at
-     pages 256 and 512 as K2 is, with the byte bound counting the
-     page-table reads too.
+     of one; the qwen3-32b and smollm-135m shapes at 64 and 256): against
+     its plain version (same tolerances), bitwise against K2 on the
+     gathered dense view, and bitwise against itself; timed at pages 256
+     (and 512) as K2 is, with the byte bound counting the page-table reads
+     too.
   4. serve - llama2-7b at full width (32 layers, random bf16 weights from a
      seeded torch.Generator) through Engine + SlotServer: policy packkv,
      capacity 2048, 4 slots, decode_chunk 8, backend "fused", dense
@@ -72,8 +75,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bitwise equal to them. Then the
      main path (matvec_path): the four entry points called once each with
      every launch count set to 0 first; each kernel must have launched.
+  7. serve_configs - smollm-135m, minicpm-2b and minitron-4b at full width
+     and depth (random bf16 weights), one after another, each freed before
+     the next: dense storage, policy packkv, backend "fused", 4 slots,
+     capacity 2048, monolithic admission, 4 requests of 32 new tokens. K2's
+     launch count must equal n_layers x decode steps and K5's be 0; outputs
+     in the vocabulary. Reports decode tok/s and compressed bytes per token
+     against bf16.
+  8. serve_prefix - the llama2-7b engine freed, qwen3-32b at full width and
+     depth (64 layers, d_model 5120, 64 heads over 8 kv heads, hd 128,
+     qk-norm, vocab 151936; 65.5 GB of bf16 weights) through paged storage
+     (pages of 256) with the prefix cache, chunked admission (one page a
+     step), capacity 2048, 4 slots: 6 requests, each a shared 512-token
+     system prompt and a suffix of {320, 700, 200, 450, 260, 900} tokens,
+     64 new tokens each. K5's launch count must equal n_layers x decode
+     steps and K2's be 0; 6 lookups, at least 4 hits, 2 pages shared per
+     hit; the reserved peak within the suffix-only bound; refcounts
+     conserved (free <=> ref == 0) in every layer at the end; every hit's
+     admission (last-token logits and the whole mini-cache it scatters)
+     and its 64 tokens bitwise equal to a cold admission of the same
+     request on a fresh server over the same engine. Reports decode tok/s,
+     wall time, peak device memory and compressed bytes per token.
 
-Then the kernels line and, last, {"ok": true, "device": {...}}.
+Then the kernels line (K2's launches summed over the dense serve phases,
+K5's over the paged and prefix ones) and, last, {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -180,15 +206,19 @@ def kernel_flops(cache, n_rows, G: int) -> int:
     return sum(n for n in n_rows) * h_kv * G * (2 * D + 2 * Dv + 8)
 
 
-# the kernel phases' decode shapes (name, B, H_kv, G) at D=128 over a
-# 2048-token bucket, with ragged live counts (an empty row among them)
-SHAPES = [("llama2-7b", 4, 32, 1), ("gqa", 4, 8, 4)]
+# the kernel phases' decode shapes (name, B, H_kv, G, D) over a 2048-token
+# bucket, with ragged live counts (an empty row among them): llama2-7b's,
+# a GQA one, and those of the other dense configs' serving (qwen3-32b's
+# G = 8; smollm-135m's G = 3 at head dim 64)
+SHAPES = [("llama2-7b", 4, 32, 1, 128), ("gqa", 4, 8, 4, 128),
+          ("qwen3-32b", 4, 8, 8, 128), ("smollm-135m", 4, 3, 3, 64)]
+MATVEC_SHAPES = SHAPES[:2]  # the tier matvecs' shapes (K3/K4 at D=64: GPU tests)
 LENGTHS = (0, 64, 1344, 2048)
 
 
 def kernel_specs(engine) -> dict:
-    """The (K, V) tier specs the kernel phases run: the serving engine's
-    calibrated one, a (1,2,4,8) one and a width-16 one."""
+    """The (K, V) tier specs the kernel phases run at D=128: the serving
+    engine's calibrated one, a (1,2,4,8) one and a width-16 one."""
     from repro_torch.core.tiered import TierSpec
 
     return {
@@ -196,6 +226,13 @@ def kernel_specs(engine) -> dict:
         "w1248": (TierSpec((1, 2, 4, 8), (32, 32, 32, 32)),) * 2,
         "w16": (TierSpec((4, 16), (96, 32)),) * 2,
     }
+
+
+def calibrated(engines: dict, D: int):
+    """The calibrated (K, V) specs at head dim D: llama2-7b's engine at
+    128, smollm-135m's at 64."""
+    eng = engines[D]
+    return eng.pack_cfg.k_spec_static, eng.pack_cfg.v_spec_static
 
 
 def held_to(got, want) -> None:
@@ -228,7 +265,8 @@ def launch_shape(cache, lengths, G: int, L: int, paged: bool) -> dict:
     from repro_torch.kernels.packed_attention import SPAN, kernel_smem_bytes
 
     h_kv = cache.k.scale.shape[1]  # the dense cache
-    key = f"packed_attention_span_kernel<{str(paged).lower()},{G}>"
+    gm = next(m for m in (1, 2, 4, 8) if G <= m)  # the instantiation's group bound
+    key = f"packed_attention_span_kernel<{str(paged).lower()},{gm}>"
     return {"blocks": len(lengths) * h_kv * -(-L // SPAN),
             "live_blocks": h_kv * sum(-(-min(x, L) // SPAN) for x in lengths),
             "threads": 256, "smem_bytes": kernel_smem_bytes(cache.k, cache.v, G),
@@ -256,7 +294,7 @@ def tier_launches(scores: bool, spec, G: int, L: int, lengths, h_kv: int,
             for w, c in zip(spec.widths, spec.counts)]
 
 
-def phase_kernel(engine, device) -> dict:
+def phase_kernel(engines: dict, device) -> dict:
     import torch
 
     from repro_torch.core import cache as tc
@@ -271,12 +309,14 @@ def phase_kernel(engine, device) -> dict:
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
     lengths = LENGTHS
-    D, L = 128, 2048
+    L = 2048
     main = None
-    for sname, (ks, vs) in kernel_specs(engine).items():
-        for shape, B, h_kv, G in SHAPES:
+    for sname in kernel_specs(engines[128]):
+        for shape, B, h_kv, G, D in SHAPES:
             if sname != "calibrated" and shape != "llama2-7b":
                 continue
+            ks, vs = (calibrated(engines, D) if sname == "calibrated"
+                      else kernel_specs(engines[128])[sname])
             cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
             q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
             sm = D ** -0.5
@@ -361,7 +401,7 @@ def to_pool(cache, page_size: int, gen):
     return paged
 
 
-def phase_kernel_paged(engine, device) -> dict:
+def phase_kernel_paged(engines: dict, device) -> dict:
     import torch
 
     from repro_torch.core import cache as tc
@@ -375,61 +415,69 @@ def phase_kernel_paged(engine, device) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
-    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
-    B, h_kv, G, D, L = 4, 32, 1, 128, 2048
+    L = 2048
     lengths = LENGTHS
-    cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
-    q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
-    sm = D ** -0.5
-    n = cache.n_comp
-    kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2).contiguous()
-    vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2).contiguous()
-    qb = q.to(torch.bfloat16)[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     main = None
-    for page in (64, 128, 256, 512):  # timed at 256 and 512
-        paged = to_pool(cache, page, gen)
-        args = (q, paged.k, paged.v, paged.pages.page_table, n, L, sm)
-        k5 = lambda: fused_packed_attention_paged(*args, page_size=page)
-        got, again = k5(), k5()
-        view = tc.gather_paged(paged)
-        k2 = fused_packed_attention(q, view.k, view.v, n, sm)
-        torch.cuda.synchronize()
-        want = fused_packed_attention_paged_torch(*args, page_size=page)
-        err = 0.0
-        for g, a, d, w in zip(got, again, k2, want):
-            check(torch.equal(g, a), f"page {page}: two K5 launches differ")
-            check(torch.equal(g, d), f"page {page}: K5 != K2 on the gathered view")
-            err = max(err, float((g - w).abs().max()))
-        held_to(got, want)
-        check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
-                   and (got[2][0] == 0).all()),
-              "the empty row's partials are not o = 0, m = -1e30, l = 0")
-        row = {"phase": "kernel_paged", "page_size": page, "B": B, "H_kv": h_kv,
-               "G": G, "D": D, "n_tokens": L, "n_comp": list(lengths),
-               "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
-               "max_abs_err": err, "bitwise_repeat": True,
-               "bitwise_equal_k2_gathered": True,
-               **launch_shape(cache, lengths, G, L, paged=True)}
-        if page >= 256:
-            ms = time_ms(k5, flush)
-            plain_ms = time_ms(
-                lambda: fused_packed_attention_paged_torch(*args, page_size=page), flush)
-            library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
-            n_rows = list(lengths)
-            table_bytes = sum(-(-x // page) for x in n_rows) * 4
-            nbytes = kernel_bytes(cache, n_rows, G) + table_bytes
-            flops = kernel_flops(cache, n_rows, G)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-            row.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                        "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                        "x_bound": ms / max(t_bytes, t_ops),
-                        "vs_library": ms / library_ms})
-        emit(row)
-        if page == 256:
-            main = row
-        del paged, view
+    for shape, B, h_kv, G, D in SHAPES:
+        if shape == "gqa":
+            continue
+        ks, vs = calibrated(engines, D)
+        cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
+        q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
+        sm = D ** -0.5
+        n = cache.n_comp
+        kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2)
+        vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2)
+        kd, vd = (x.repeat_interleave(G, dim=1).contiguous() for x in (kd, vd))
+        qb = q.to(torch.bfloat16)[:, :, None, :]
+        # llama2-7b: every page size, timed at 256 and 512; the other
+        # configs' shapes: pages of 64 and 256, timed at 256
+        pages = (64, 128, 256, 512) if shape == "llama2-7b" else (64, 256)
+        for page in pages:
+            paged = to_pool(cache, page, gen)
+            args = (q, paged.k, paged.v, paged.pages.page_table, n, L, sm)
+            k5 = lambda: fused_packed_attention_paged(*args, page_size=page)
+            got, again = k5(), k5()
+            view = tc.gather_paged(paged)
+            k2 = fused_packed_attention(q, view.k, view.v, n, sm)
+            torch.cuda.synchronize()
+            want = fused_packed_attention_paged_torch(*args, page_size=page)
+            err = 0.0
+            for g, a, d, w in zip(got, again, k2, want):
+                check(torch.equal(g, a), f"{shape}, page {page}: two K5 launches differ")
+                check(torch.equal(g, d), f"{shape}, page {page}: K5 != K2 on the gathered view")
+                err = max(err, float((g - w).abs().max()))
+            held_to(got, want)
+            check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
+                       and (got[2][0] == 0).all()),
+                  "the empty row's partials are not o = 0, m = -1e30, l = 0")
+            row = {"phase": "kernel_paged", "shape": shape, "page_size": page, "B": B,
+                   "H_kv": h_kv, "G": G, "D": D, "n_tokens": L, "n_comp": list(lengths),
+                   "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+                   "max_abs_err": err, "bitwise_repeat": True,
+                   "bitwise_equal_k2_gathered": True,
+                   **launch_shape(cache, lengths, G, L, paged=True)}
+            if page >= 256:
+                ms = time_ms(k5, flush)
+                plain_ms = time_ms(
+                    lambda: fused_packed_attention_paged_torch(*args, page_size=page), flush)
+                library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
+                n_rows = list(lengths)
+                table_bytes = sum(-(-x // page) for x in n_rows) * 4
+                nbytes = kernel_bytes(cache, n_rows, G) + table_bytes
+                flops = kernel_flops(cache, n_rows, G)
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+                row.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                            "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                            "x_bound": ms / max(t_bytes, t_ops),
+                            "vs_library": ms / library_ms})
+            emit(row)
+            if page == 256 and main is None:
+                main = row
+            del paged, view
+        del cache, kd, vd
     return main
 
 
@@ -676,6 +724,240 @@ def phase_serve_paged(engine, cfg, dense: dict) -> dict:
     return {"launches": launches}
 
 
+def compressed_bytes_per_token(cfg, engine):
+    """(compressed, bf16) bytes a token of context takes in the cache over
+    all layers and kv heads, from the calibrated specs (payload bits, pack
+    metadata and the per-token scale/zero, as the paper counts them)."""
+    from repro_torch.core.tiered import tiered_bits_per_value
+
+    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+    per_tok = cfg.n_layers * cfg.n_kv_heads * cfg.hd
+    return (per_tok * (tiered_bits_per_value(ks) + tiered_bits_per_value(vs)) / 8,
+            per_tok * 2 * 2)
+
+
+def config_engine(name: str, device, seed: int, **ekw):
+    """A full-width engine of a ported config: random bf16 weights from a
+    seeded torch.Generator, policy packkv, capacity 2048, 4 slots,
+    decode_chunk 8, backend fused."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig
+
+    cfg = get_arch(name)
+    params = get_model(cfg).init(torch.Generator(device=device).manual_seed(seed), cfg)
+    return cfg, Engine(cfg, params, get_policy("packkv"),
+                       EngineConfig(capacity=2048, max_batch=4, decode_chunk=8,
+                                    backend="fused", device="cuda", **ekw))
+
+
+def free_engine(engine) -> None:
+    """Drop an engine's weights so the next model fits on the card: the
+    phases' servers hold their engines in reference cycles (wrapped
+    methods), so the collector runs before the cache is emptied."""
+    import gc
+
+    import torch
+
+    engine.params = None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# serve_configs: the other dense configs at full width and depth, dense
+CONFIG_SERVE = ("smollm-135m", "minicpm-2b", "minitron-4b")
+CONFIG_PROMPTS = (320, 700, 450, 900)
+CONFIG_NEW = 32
+
+
+def phase_serve_configs(first: tuple, device) -> dict:
+    """smollm-135m (``first``: its (cfg, engine), built for the kernel
+    phases' D=64 spec), minicpm-2b and minitron-4b one after another:
+    4 requests of 32 new tokens each through dense storage. K2 launches
+    once per layer and decode step, K5 never; outputs in the vocabulary."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+    from repro_torch.serving import Request, SlotServer
+
+    total = 0
+    for i, name in enumerate(CONFIG_SERVE):
+        t0 = time.perf_counter()
+        cfg, engine = first if name == first[0].name else config_engine(
+            name, device, i + 10, prefill_chunk_pages=0)
+        built = time.perf_counter() - t0
+        rng = np.random.default_rng(4)
+        server = SlotServer(engine)
+        for rid, n in enumerate(CONFIG_PROMPTS):
+            server.submit(Request(rid=rid, tokens=rng.integers(0, cfg.vocab, n),
+                                  max_new=CONFIG_NEW))
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        t0 = time.perf_counter()
+        done = {r.rid: r for r in server.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, s = fused_packed_attention.launches, server.stats
+        check(len(done) == len(CONFIG_PROMPTS), f"{name}: not every request finished")
+        check(launches > 0 and launches == cfg.n_layers * s.decode_steps,
+              f"{name}: K2 launches {launches} != {cfg.n_layers} x {s.decode_steps} steps")
+        check(fused_packed_attention_paged.launches == 0, f"{name}: dense serving launched K5")
+        for r in done.values():
+            out = np.asarray(r.output)
+            check(out.shape == (CONFIG_NEW,) and (out >= 0).all() and (out < cfg.vocab).all(),
+                  f"{name} request {r.rid}: output out of the vocabulary")
+        comp, bf16 = compressed_bytes_per_token(cfg, engine)
+        ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+        emit({"phase": "serve_configs", "arch": name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+              "G": cfg.n_heads // cfg.n_kv_heads, "head_dim": cfg.hd,
+              "weights_gb": cfg.param_count() * 2 / 1e9, "engine_s": built,
+              "requests": len(CONFIG_PROMPTS), "prompts": list(CONFIG_PROMPTS),
+              "max_new": CONFIG_NEW, "k_spec": [ks.widths, ks.counts],
+              "v_spec": [vs.widths, vs.counts], "decode_steps": s.decode_steps,
+              "k2_launches": launches, "prefill_chunks": s.prefill_chunks,
+              "wall_s": wall, "decode_s": s.decode_s,
+              "decode_tok_s": (s.tokens_out - s.admitted) / s.decode_s,
+              "compressed_bytes_per_token": comp, "bf16_bytes_per_token": bf16,
+              "compression_ratio": bf16 / comp})
+        total += launches
+        del server, done
+        free_engine(engine)
+    return {"launches": total}
+
+
+# serve_prefix: qwen3-32b with a shared system prompt, paged + prefix cache
+PREFIX_SYS = 512
+PREFIX_SUFFIXES = (320, 700, 200, 450, 260, 900)
+PREFIX_NEW = 64
+
+
+def phase_serve_prefix(device) -> dict:
+    """qwen3-32b at full width and depth through paged storage with the
+    prefix cache: 6 requests opening with one 512-token system prompt
+    (2 pages of 256). Every admission after the first hits the index;
+    each hit's admission (last-token logits, the whole mini-cache it
+    scatters) and its 64 tokens must equal a cold admission of the same
+    request on a fresh server over the same engine, bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+    from repro_torch.serving import Request, SlotServer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, engine = config_engine("qwen3-32b", device, 20, paged=True, page_size=256,
+                                prefix_cache=True, prefill_chunk_pages=1)
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    sys_prompt = rng.integers(0, cfg.vocab, PREFIX_SYS)
+    suffixes = [rng.integers(0, cfg.vocab, n) for n in PREFIX_SUFFIXES]
+    reqs = lambda: [Request(rid=i, max_new=PREFIX_NEW,
+                            tokens=np.concatenate([sys_prompt, sfx]))
+                    for i, sfx in enumerate(suffixes)]
+
+    def serve(requests):
+        """A fresh server over ``engine``; records each admission's logits,
+        mini-cache and matched pages as its last segment finishes."""
+        server = SlotServer(engine)
+        record, finish = {}, server._finish_task
+
+        def finish_and_record(t, finished):
+            record[t.req.rid] = (t.logits, t.scratch, t.match_pages)
+            return finish(t, finished)
+
+        server._finish_task = finish_and_record
+        for r in requests:
+            server.submit(r)
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        start = time.perf_counter()
+        server.run()
+        torch.cuda.synchronize()
+        return server, record, time.perf_counter() - start
+
+    warm, record, wall = serve(reqs())
+    launches, s = fused_packed_attention_paged.launches, warm.stats
+    check(len(warm.done) == len(PREFIX_SUFFIXES), "not every request finished")
+    check(launches > 0 and launches == cfg.n_layers * s.decode_steps,
+          f"K5 launches {launches} != {cfg.n_layers} x {s.decode_steps} steps")
+    check(fused_packed_attention.launches == 0, "paged serving launched K2")
+    hits = sorted(rid for rid, (_, _, pages) in record.items() if pages)
+    pages_sys = PREFIX_SYS // engine.ecfg.page_size
+    check(s.prefix_lookups == len(PREFIX_SUFFIXES) and s.prefix_hits >= 4
+          and len(hits) == s.prefix_hits
+          and s.prefix_pages_shared == pages_sys * s.prefix_hits
+          and all(len(record[rid][2]) == pages_sys for rid in hits),
+          f"prefix stats: {s.prefix_lookups} lookups, {s.prefix_hits} hits, "
+          f"{s.prefix_pages_shared} pages shared")
+    # suffix-only reservations: at most one cold row (the first) among the
+    # slots, every hit reserving its need less the shared pages
+    needs = [warm._pages_needed(r) for r in reqs()]
+    bound = needs[0] + sum(sorted(n - pages_sys for n in needs[1:])[-3:])
+    check(s.pages_reserved_peak <= bound < sum(sorted(needs)[-4:]),
+          f"reserved peak {s.pages_reserved_peak} above the suffix-only bound {bound}")
+    # refcount conservation (free <=> ref == 0) in every layer; the index's
+    # pages stay held
+    for layer in warm.cache:
+        ref = layer.pages.ref.cpu().numpy()
+        nf = int(layer.pages.n_free)
+        free = layer.pages.free.cpu().numpy()[:nf]
+        check(int((ref == 0).sum()) == nf and int((ref > 0).sum()) + nf == len(ref)
+              and bool((ref[free] == 0).all())
+              and all(ref[p] >= 1 for p in warm._index.pages),
+              "page refcounts are not conserved")
+    peak = torch.cuda.max_memory_allocated()
+    outputs = {rid: np.asarray(r.output) for rid, r in warm.done.items()}
+    for r in outputs.values():
+        check(r.shape == (PREFIX_NEW,) and (r >= 0).all() and (r < cfg.vocab).all(),
+              "an output out of the vocabulary")
+    decode_tok_s = (s.tokens_out - s.admitted) / s.decode_s
+    del warm
+    cold_s = 0.0
+    for rid in hits:
+        cold, cold_rec, dt = serve([reqs()[rid]])
+        cold_s += dt
+        (lw, mw, _), (lc, mc, pages) = record[rid], cold_rec[rid]
+        check(not pages, "a fresh server's admission hit")
+        check(torch.equal(lw, lc), f"request {rid}: hit admission logits != cold")
+        check(all(torch.equal(a, b) for a, b in zip(cache_tensors(mw), cache_tensors(mc))),
+              f"request {rid}: hit admission cache bytes != cold")
+        check(np.array_equal(outputs[rid], np.asarray(cold.done[rid].output)),
+              f"request {rid}: hit tokens != cold tokens")
+        del cold, cold_rec
+    comp, bf16 = compressed_bytes_per_token(cfg, engine)
+    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+    emit({"phase": "serve_prefix", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "qk_norm": cfg.qk_norm, "vocab": cfg.vocab,
+          "weights_gb": cfg.param_count() * 2 / 1e9, "engine_s": built,
+          "page_size": engine.ecfg.page_size, "pool_pages": engine.pack_cfg.pool_pages,
+          "system_prompt": PREFIX_SYS, "suffixes": list(PREFIX_SUFFIXES),
+          "max_new": PREFIX_NEW, "k_spec": [ks.widths, ks.counts],
+          "v_spec": [vs.widths, vs.counts], "prefix_lookups": s.prefix_lookups,
+          "prefix_hits": s.prefix_hits, "prefix_pages_shared": s.prefix_pages_shared,
+          "prefix_evictions": s.prefix_evictions, "pages_reserved_peak": s.pages_reserved_peak,
+          "suffix_only_bound": bound, "prefill_chunks": s.prefill_chunks,
+          "decode_steps": s.decode_steps, "k5_launches": launches, "wall_s": wall,
+          "decode_s": s.decode_s, "decode_tok_s": decode_tok_s,
+          "peak_memory_bytes": peak, "cold_runs": len(hits), "cold_runs_s": cold_s,
+          "hits_bitwise_equal_cold": True,
+          "compressed_bytes_per_token": comp, "bf16_bytes_per_token": bf16,
+          "compression_ratio": bf16 / comp})
+    free_engine(engine)
+    return {"launches": launches}
+
+
 def tier_runs(tc_, flat, sliced: bool):
     """(tier, its (payload, mins, shifts) through ``flat``, its channel
     slice of q's head dim if ``sliced`` (K) else None (V, whose w is
@@ -823,7 +1105,7 @@ def phase_matvec(engine, device) -> dict:
         return got, err
 
     for sname, (ks, vs) in kernel_specs(engine).items():
-        for shape, B, h_kv, G in SHAPES:
+        for shape, B, h_kv, G, _ in MATVEC_SHAPES:
             if sname != "calibrated" and shape != "llama2-7b":
                 continue
             main = sname == "calibrated" and shape == "llama2-7b"
@@ -1040,12 +1322,22 @@ def main() -> int:
                      engine.pack_cfg.k_spec_static.counts],
           "v_spec": [engine.pack_cfg.v_spec_static.widths,
                      engine.pack_cfg.v_spec_static.counts]})
+    # smollm-135m's engine: its calibrated spec is the kernel phases' D=64
+    # one; serve_configs serves it first
+    smollm = config_engine("smollm-135m", device, 10, prefill_chunk_pages=0)
+    engines = {128: engine, 64: smollm[1]}
 
-    k2 = phase_kernel(engine, device)
-    k5 = phase_kernel_paged(engine, device)
+    k2 = phase_kernel(engines, device)
+    k5 = phase_kernel_paged(engines, device)
     serve = phase_serve(engine, cfg, device)
     serve_paged = phase_serve_paged(engine, cfg, serve)
     mv = phase_matvec(engine, device)
+    configs = phase_serve_configs(smollm, device)
+    # qwen3-32b's 65.5 GB of weights need the card to themselves
+    del smollm, engines, params
+    free_engine(engine)
+    del engine
+    prefix = phase_serve_prefix(device)
     print(card, flush=True)
     row = lambda name, source, replaces, k, launches: {
         "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -1055,9 +1347,11 @@ def main() -> int:
         "library_ms": k["library_ms"]}
     emit({"kernels": [
         row("fused_packed_attention", "packed_attention.cu",
-            "src/repro/kernels/packed_attention.py:172", k2, serve["launches"]),
+            "src/repro/kernels/packed_attention.py:172", k2,
+            serve["launches"] + configs["launches"]),
         row("fused_packed_attention_paged", "packed_attention.cu",
-            "src/repro/kernels/packed_attention.py:375", k5, serve_paged["launches"]),
+            "src/repro/kernels/packed_attention.py:375", k5,
+            serve_paged["launches"] + prefix["launches"]),
         row("kpack_tier_scores", "tier_matvec.cu",
             "src/repro/kernels/kpack_matvec.py:69", mv["K3"], mv["K3"]["launches"]),
         row("vpack_tier_out", "tier_matvec.cu",

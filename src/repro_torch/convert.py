@@ -45,7 +45,8 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The reference's stacked params dict (numpy leaves) -> this
-    package's params dict, same keys and layout."""
+    package's params dict, same keys and layout (``q_norm`` / ``k_norm``
+    ``[L, hd]`` among the attention leaves when ``cfg.qk_norm``)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
@@ -57,6 +58,9 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     if out["layers"]["ln1"].shape[0] != cfg.n_layers:
         raise ValueError(f"params hold {out['layers']['ln1'].shape[0]} "
                          f"layers, config {cfg.name} has {cfg.n_layers}")
+    if ("q_norm" in out["layers"]["attn"]) != cfg.qk_norm:
+        raise ValueError(f"config {cfg.name} has qk_norm={cfg.qk_norm}, the "
+                         "params' attention leaves disagree")
     return out
 
 

@@ -19,8 +19,10 @@ leading axis.
 
 Where the reference returned a new cache from donated buffers, these
 functions update the cache tensors IN PLACE and return the same object:
-``prefill_cache``, ``append_token``, ``reset_slot``, ``mask_free_slots``
-``insert_row``, ``insert_row_paged`` and the pool primitives.
+``prefill_cache``, ``prefill_append``, ``append_token``, ``reset_slot``,
+``mask_free_slots``, ``insert_row``, ``insert_row_paged``, the pool
+primitives and the prefix-sharing ops (``share_pages``, ``acquire_pages``,
+``release_pages``, ``seed_prefix_from_pages``).
 ``slice_compressed`` returns views (dense) or a gathered copy (paged) for
 reads only.
 
@@ -53,6 +55,8 @@ from .tiered import (
     page_prefix_ids,
     required_channel_widths,
     slice_tiered_prefix,
+    slice_tiered_suffix,
+    write_tiered_prefix,
 )
 
 BLOCK = 64  # truncated block size (consistent with KIVI, paper IV-A)
@@ -506,9 +510,26 @@ def pool_release_row(pool: PagePool, slot: int, n_pages) -> PagePool:
     return _pool_release_ids(pool, ids)
 
 
+def pool_map_prefix(pool: PagePool, slot: int, phys: torch.Tensor) -> PagePool:
+    """SHARE, IN PLACE: map already-held pages ``phys`` (int [k]) into
+    ``page_table[slot, :k]`` by reference (``ref += 1``). Every entry must
+    have ``ref >= 1`` (held by another slot or the prefix index), so a
+    mapped page is never on the free stack."""
+    k = phys.shape[0]
+    if k == 0:
+        return pool
+    pool.page_table[slot, :k] = phys.to(torch.int32)
+    pool.ref.index_put_((phys.to(torch.int64),),
+                        torch.ones((k,), dtype=torch.int32, device=phys.device),
+                        accumulate=True)
+    return pool
+
+
 def pool_acquire_ids(pool: PagePool, ids: torch.Tensor) -> PagePool:
     """Add one reference per entry of ``ids`` IN PLACE (sentinels
-    ``>= n_pool_pages`` ignored)."""
+    ``>= n_pool_pages`` ignored). The prefix index pins its pages with
+    this, before the owning slot releases them, so a count never dips to
+    zero in between."""
     P = pool.n_pool_pages
     ids = ids.to(torch.int32)
     pool.ref.index_put_((torch.clamp(ids, 0, P - 1).to(torch.int64),),
@@ -852,26 +873,132 @@ def paged_mini_spec(cfg: PackKVConfig, L: int) -> tuple[PackKVConfig, int, int]:
 
 
 def insert_row_paged(cache: LayerKVCache, slot: int, row: LayerKVCache,
-                     n_pages: int) -> LayerKVCache:
+                     n_pages: int, n_shared: int = 0,
+                     shared_phys: torch.Tensor | None = None) -> LayerKVCache:
     """Scatter a DENSE single-row cache into row ``slot`` of a paged cache,
-    IN PLACE: the slot's old pages are released, ``n_pages`` fresh ones
-    popped, and ``row``'s compressed bytes (capacity ``n_pages`` whole
-    pages) land in them page by page; residual, counters and
-    ``chan_perm`` are copied slot-wise. (The reference's prefix sharing,
-    ``n_shared``/``shared_phys``, arrives with the prefix cache.)"""
+    IN PLACE: the slot's old pages are released, ``n_pages - n_shared``
+    fresh ones popped, and ``row``'s newly compressed bytes (capacity
+    ``n_pages`` whole pages) land in them page by page; residual,
+    counters and ``chan_perm`` are copied slot-wise.
+
+    PREFIX SHARING: ``shared_phys`` (int [n_shared]) maps held pages into
+    the table's leading entries by reference (``pool_map_prefix``); their
+    bytes are not touched and ``row``'s first ``n_shared`` pages are
+    ignored (they were seeded from those pages, ``seed_prefix_from_pages``)."""
     pool = cache.pages
-    pool_release_row(pool, slot, live_pages(cache.n_comp[slot], pool.page_size))
-    phys = pool_pop_prefix(pool, slot, n_pages)[None]
-    if n_pages and cache.cfg.policy == "none":
-        _scatter_pages(cache.raw_k, row.raw_k, phys, axis=-2)
-        _scatter_pages(cache.raw_v, row.raw_v, phys, axis=-2)
-    elif n_pages:
-        _scatter_pages_tiered(cache.k, row.k, phys)
-        _scatter_pages_tiered(cache.v, row.v, phys)
+    page = pool.page_size
+    pool_release_row(pool, slot, live_pages(cache.n_comp[slot], page))
+    if n_shared:
+        pool_map_prefix(pool, slot, shared_phys)
+    phys = pool_pop_prefix(pool, slot, n_pages - n_shared, lp0=n_shared)[None]
+    start = n_shared * page
+    if n_pages - n_shared and cache.cfg.policy == "none":
+        _scatter_pages(cache.raw_k, row.raw_k[..., start:, :], phys, axis=-2)
+        _scatter_pages(cache.raw_v, row.raw_v[..., start:, :], phys, axis=-2)
+    elif n_pages - n_shared:
+        _scatter_pages_tiered(cache.k, slice_tiered_suffix(row.k, start), phys)
+        _scatter_pages_tiered(cache.v, slice_tiered_suffix(row.v, start), phys)
     if cache.cfg.policy != "none":
         cache.k.chan_perm[slot] = row.k.chan_perm[0]
         cache.v.chan_perm[slot] = row.v.chan_perm[0]
     for dst, src in ((cache.resid_k, row.resid_k), (cache.resid_v, row.resid_v),
                      (cache.n_comp, row.n_comp), (cache.n_resid, row.n_resid)):
         dst[slot] = src[0]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Prefix sharing (refcounted pages; the host side is serving/engine.py's)
+# ---------------------------------------------------------------------------
+
+
+def _per_layer(cache, fn):
+    """Apply ``fn`` to one ``LayerKVCache`` or to each of a model's list."""
+    for layer in (cache if isinstance(cache, list) else [cache]):
+        fn(layer)
+    return cache
+
+
+def share_pages(cache, slot: int, phys: torch.Tensor):
+    """Map held pages ``phys`` (int [k]) into the leading table entries of
+    row ``slot`` by reference on every layer, IN PLACE (``ref += 1``; bytes
+    untouched; counters are the caller's)."""
+    return _per_layer(cache, lambda c: pool_map_prefix(c.pages, slot, phys))
+
+
+def acquire_pages(cache, ids: torch.Tensor):
+    """Add one reference per entry of ``ids`` on every layer's pool, IN
+    PLACE: how the prefix index pins its pages. Sentinels (``>=
+    pool_pages``) are ignored, so callers may pad to a fixed length."""
+    return _per_layer(cache, lambda c: pool_acquire_ids(c.pages, ids))
+
+
+def release_pages(cache, ids: torch.Tensor):
+    """Drop one reference per entry of ``ids`` on every layer's pool, IN
+    PLACE; pages reaching ``ref == 0`` return to the free stack (prefix
+    index eviction). Sentinels are ignored."""
+    return _per_layer(cache, lambda c: _pool_release_ids(c.pages, ids))
+
+
+def seed_prefix_from_pages(cache: LayerKVCache, mini: LayerKVCache,
+                           phys: torch.Tensor, n_prefix: int,
+                           k_perm: torch.Tensor | None = None,
+                           v_perm: torch.Tensor | None = None) -> LayerKVCache:
+    """Seed a DENSE mini-cache, IN PLACE, with the shared compressed prefix
+    held by pool pages ``phys`` (int [k], ``k * page_size == n_prefix``) of
+    the paged ``cache``: its leading tokens, ``n_comp = n_prefix``,
+    ``n_resid = 0``. ``k_perm`` / ``v_perm`` ([H_kv, D], from the prefix
+    index) restore the channel permutation the prefix was compressed
+    under, so the suffix compresses under the same one."""
+    idx = phys[None]
+    if cache.cfg.policy == "none":
+        mini.raw_k[..., :n_prefix, :] = gather_pool_leaf(cache.raw_k, idx, token_axis=-2)
+        mini.raw_v[..., :n_prefix, :] = gather_pool_leaf(cache.raw_v, idx, token_axis=-2)
+    else:
+        write_tiered_prefix(mini.k, gather_tiered_pages(cache.k, idx))
+        write_tiered_prefix(mini.v, gather_tiered_pages(cache.v, idx))
+        mini.k.chan_perm.copy_(k_perm[None])
+        mini.v.chan_perm.copy_(v_perm[None])
+    mini.n_comp.fill_(n_prefix)
+    mini.n_resid.zero_()
+    return mini
+
+
+def prefill_append(cache: LayerKVCache, k: torch.Tensor, v: torch.Tensor,
+                   calibrate: bool) -> LayerKVCache:
+    """Append one prefill segment's K/V ([B,H,S,D]) to a DENSE cache at each
+    row's own ``n_comp``, IN PLACE (the chunked-prefill building block).
+
+    Preconditions: ``n_resid == 0`` and ``n_comp`` block-aligned on every
+    row. Whole blocks compress under the cache's ``chan_perm``;
+    ``calibrate`` (the first segment of a cold admission) computes it from
+    this segment first, so every request that shares the first page shares
+    the calibration. The sub-block remainder goes to the residual."""
+    cfg = cache.cfg
+    S = k.shape[-2]
+    Lb = (S // cfg.block) * cfg.block
+    if Lb:
+        kb, vb = k[..., :Lb, :], v[..., :Lb, :]
+        if cfg.policy == "none":
+            row_update_tokens(cache.raw_k, kb, cache.n_comp)
+            row_update_tokens(cache.raw_v, vb, cache.n_comp)
+        else:
+            if calibrate:
+                k_perm, v_perm = calibrate_channel_tiers(kb, vb, cfg)
+                cache.k.chan_perm.copy_(k_perm)
+                cache.v.chan_perm.copy_(v_perm)
+            kc, vc = compress_block(kb, vb, cfg, cache.k.chan_perm, cache.v.chan_perm)
+            offs = cache.n_comp.tolist()
+            append_block_rows(cache.k, kc, offs)
+            append_block_rows(cache.v, vc, offs)
+    elif calibrate and cfg.policy != "none":  # sub-block prompt: identity
+        k_perm, v_perm = calibrate_channel_tiers(k[..., :0, :], v[..., :0, :], cfg)
+        cache.k.chan_perm.copy_(k_perm)
+        cache.v.chan_perm.copy_(v_perm)
+    rem = S - Lb
+    if rem:
+        row_update_tokens(cache.resid_k, k[..., Lb:, :], cache.n_resid)
+        row_update_tokens(cache.resid_v, v[..., Lb:, :], cache.n_resid)
+    cache.n_comp += Lb
+    cache.n_resid += rem
     return cache

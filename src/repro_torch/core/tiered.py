@@ -391,6 +391,55 @@ def slice_tiered_prefix(cache: TieredCache, n: int) -> TieredCache:
                        spec=spec)
 
 
+def slice_tiered_suffix(cache: TieredCache, start: int) -> TieredCache:
+    """Suffix VIEW (no copy): every buffer's tokens from ``start`` on, a
+    multiple of ``4 * pack_size`` (page starts are). The mirror of
+    ``slice_tiered_prefix``: a prefix-cache admission scatters only its
+    newly compressed pages."""
+    if start == 0:
+        return cache
+    spec = cache.spec
+    if start % (4 * spec.pack_size):
+        raise ValueError(f"suffix start {start} not a multiple of 4*{spec.pack_size}")
+    P0 = start // spec.pack_size
+    tiers = tuple(
+        TierBuffer(
+            payload=t.payload[..., start * t.width // 32:],
+            mins=t.mins[..., P0:],
+            shifts=t.shifts[..., P0 // 4:],
+            width=t.width,
+            pack_size=t.pack_size,
+        )
+        for t in cache.tiers
+    )
+    return TieredCache(tiers=tiers, chan_perm=cache.chan_perm,
+                       scale=cache.scale[..., start:], zero=cache.zero[..., start:],
+                       spec=spec)
+
+
+def write_tiered_prefix(dst: TieredCache, src: TieredCache) -> TieredCache:
+    """Write ``src``'s whole token range into the leading tokens of ``dst``,
+    IN PLACE: payload, mins, shifts, scale and zero (``dst.chan_perm`` is
+    the caller's to set). ``src.capacity`` must be a multiple of
+    ``4 * pack_size`` (gathered whole pages are). Seeds a dense mini-cache
+    with a shared compressed prefix."""
+    n = src.capacity
+    if n % (4 * dst.spec.pack_size):
+        raise ValueError(f"prefix {n} not a multiple of 4*{dst.spec.pack_size}")
+
+    def put(d, s):
+        d[..., :s.shape[-1]] = s
+
+    for dt, st in zip(dst.tiers, src.tiers):
+        if dt.width:
+            put(dt.payload, st.payload)
+        put(dt.mins, st.mins)
+        put(dt.shifts, st.shifts)
+    put(dst.scale, src.scale)
+    put(dst.zero, src.zero)
+    return dst
+
+
 # ---------------------------------------------------------------------------
 # Page pool layout
 # ---------------------------------------------------------------------------

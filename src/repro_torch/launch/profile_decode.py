@@ -2,15 +2,15 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode
 
-Builds the engine as ``chip_smoke.py``'s serve phases do (llama2-7b at
-full width, random weights, policy packkv, capacity 2048, decode_chunk 8;
-``--paged``: the page pool, ``--page-size`` tokens a page), admits
-``--batch`` requests of ``--prompt-len`` tokens in one step (monolithic
-admission), runs one decode launch as warm-up, then profiles
-``--launches`` more. Prints one JSON
-line: wall and device-busy milliseconds per decode step, the device's
-idle share, and the kernels that took the most device time. On a CPU
-(``--smoke --device cpu``) it profiles the host only.
+Builds the engine as ``chip_smoke.py``'s serve phases do (``--arch``,
+llama2-7b by default, at full width, random weights, policy packkv,
+capacity 2048, decode_chunk 8; ``--paged``: the page pool, ``--page-size``
+tokens a page), admits ``--batch`` requests of ``--prompt-len`` tokens in
+one step (monolithic admission), runs one decode launch as warm-up, then
+profiles ``--launches`` more. Prints one JSON line: wall and device-busy
+milliseconds per decode step, the device's idle share, the bf16 GEMMs'
+device time per step (cuBLAS kernels) and the kernels that took the most
+device time. On a CPU (``--smoke --device cpu``) it profiles the host only.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_arch
+from ..configs import ARCHS, get_arch
 from ..core.policy import get_policy
 from ..models import get_model
 from ..serving import Engine, EngineConfig, Request, SlotServer
@@ -29,7 +29,7 @@ from ..serving import Engine, EngineConfig, Request, SlotServer
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--arch", default="llama2-7b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1000)
@@ -75,6 +75,9 @@ def main(argv=None) -> int:
             k[1] += 1
     rows = sorted(((us, name, n) for name, (us, n) in kernels.items()), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    # cuBLAS's GEMM kernels (nvjet_* on Hopper; *gemm* elsewhere)
+    gemm_ms = sum(us for us, name, _ in rows
+                  if name.startswith("nvjet") or "gemm" in name.lower()) / 1e3
     out = {
         "arch": cfg.name, "device": args.device, "paged": args.paged,
         "name": torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -82,6 +85,7 @@ def main(argv=None) -> int:
         "decode_steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_ms / steps,
         "idle_share": 1.0 - busy_ms / (wall * 1e3) if cuda else None,
+        "gemm_ms_per_step": gemm_ms / steps,
         "top_kernels": [{"name": k[:80], "calls": c, "ms_per_step": us / 1e3 / steps}
                         for us, k, c in rows[:args.top]],
     }

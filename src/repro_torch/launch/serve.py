@@ -6,10 +6,15 @@ PyTorch path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --requests 6 --max-new 32 --prompt-len 512 --batch 4 --capacity 2048
 
-``--paged`` serves from the page pool with page-reservation admission
-(``--pool-pages`` below ``batch * capacity / page-size`` oversubscribes
-it, so admission blocks on pages); admission is chunked by default
-(``--prefill-chunk-pages 1``; 0 admits each prompt in one prefill).
+``--arch`` takes every ported config: llama2-7b, smollm-135m, minicpm-2b,
+minitron-4b, qwen3-32b. ``--paged`` serves from the page pool with
+page-reservation admission (``--pool-pages`` below ``batch * capacity /
+page-size`` oversubscribes it, so admission blocks on pages); admission is
+chunked by default (``--prefill-chunk-pages 1``; 0 admits each prompt in
+one prefill). ``--prefix-cache`` (with ``--paged``) shares prompt pages
+across requests, at most ``--prefix-cache-pages`` of them pinned by the
+index; its demo traffic opens every prompt with the same two-page system
+prompt, so later admissions hit.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_arch
+from ..configs import ARCHS, get_arch
 from ..core.policy import get_policy
 from ..kernels.packed_attention import (
     fused_packed_attention,
@@ -32,7 +37,7 @@ from ..utils import tree_bytes
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--arch", default="llama2-7b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -47,6 +52,10 @@ def main(argv=None) -> int:
     ap.add_argument("--page-size", type=int, default=256)
     ap.add_argument("--pool-pages", type=int, default=None)
     ap.add_argument("--prefill-chunk-pages", type=int, default=1)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share indexed prompt pages across requests (needs --paged)")
+    ap.add_argument("--prefix-cache-pages", type=int, default=None,
+                    help="most pages the prefix index may pin")
     args = ap.parse_args(argv)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -59,7 +68,9 @@ def main(argv=None) -> int:
                         backend=args.backend, device=args.device,
                         paged=args.paged, page_size=args.page_size,
                         pool_pages=args.pool_pages,
-                        prefill_chunk_pages=args.prefill_chunk_pages)
+                        prefill_chunk_pages=args.prefill_chunk_pages,
+                        prefix_cache=args.prefix_cache,
+                        prefix_cache_pages=args.prefix_cache_pages)
     t0 = time.time()
     engine = Engine(cfg, params, get_policy(args.policy), ecfg)
     print(f"engine built in {time.time() - t0:.1f}s; policy={args.policy}, "
@@ -71,10 +82,14 @@ def main(argv=None) -> int:
 
     server = SlotServer(engine)
     rng = np.random.default_rng(args.seed)
+    # --prefix-cache demo traffic: every request opens with the same
+    # two-page system prompt, so later admissions hit the index
+    sys_prompt = (rng.integers(0, cfg.vocab, 2 * args.page_size)
+                  if args.prefix_cache else np.zeros(0, np.int64))
     for rid in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
-        server.submit(Request(rid=rid, max_new=args.max_new,
-                              tokens=rng.integers(0, cfg.vocab, plen)))
+        toks = np.concatenate([sys_prompt, rng.integers(0, cfg.vocab, plen)])
+        server.submit(Request(rid=rid, max_new=args.max_new, tokens=toks))
     kernels = (fused_packed_attention, fused_packed_attention_paged)
     for k in kernels:
         k.launches = 0
@@ -95,6 +110,10 @@ def main(argv=None) -> int:
         print(f"page pool: {engine.pack_cfg.pool_pages} pages of "
               f"{args.page_size}, peak reserved {s.pages_reserved_peak}, "
               f"{s.admission_blocks} admission blocks")
+    if args.prefix_cache:
+        print(f"prefix cache: {s.prefix_hits}/{s.prefix_lookups} hits "
+              f"(rate {s.prefix_hit_rate:.2f}), {s.prefix_pages_shared} pages "
+              f"shared by reference, {s.prefix_evictions} evictions")
     where = "CUDA kernel" if engine.device.type == "cuda" else "plain version on CPU"
     print(f"fused kernel launches: {sum(k.launches for k in kernels)} ("
           + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)

@@ -168,18 +168,53 @@ def resume_attention(q, k_all, v_all, n_ctx: int, *, causal: bool = True,
     return out.reshape(B, Hq, Sc, Dh)
 
 
+def ctx_attention(q, k_all, v_all, n_ctx: int, sm_scale: float) -> torch.Tensor:
+    """Segment attention of a prefix-cache admission: queries over
+    [context | self].
+
+    q: [B, Hq, S, Dh]; k_all, v_all: [B, Hkv, n_ctx + S, Dh] whose first
+    ``n_ctx`` keys are read-only context (in every query's past) and the
+    last S the segment's own (causal). One f32 softmax, as the reference:
+    a segment is at most one page of queries."""
+    B, Hq, S, Dh = q.shape
+    Hkv, T = k_all.shape[1], k_all.shape[2]
+    qg = q.to(torch.float32).reshape(B, Hkv, Hq // Hkv, S, Dh)
+    s = torch.einsum("bhgsd,bhtd->bhgst", qg, k_all.to(torch.float32)) * sm_scale
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= (n_ctx + torch.arange(S, device=q.device))[:, None])
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    out = torch.einsum("bhgst,bhtd->bhgsd", p, v_all.to(torch.float32))
+    out = out / torch.clamp(p.sum(-1)[..., None], min=1e-30)
+    return out.reshape(B, Hq, S, Dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention / MLP blocks
 # ---------------------------------------------------------------------------
 
 
+def attention_norm_init(head_dim: int, device="cuda") -> dict:
+    """qk-norm weights (``q_norm`` / ``k_norm``): ones over the head dim,
+    bf16, as the reference's ``attention_init`` makes them."""
+    one = lambda: torch.ones((head_dim,), dtype=torch.bfloat16, device=device)
+    return {"q_norm": one(), "k_norm": one()}
+
+
 def qkv_proj(p: dict, x, n_heads: int, n_kv: int, head_dim: int, positions,
-             rope_theta: float = 1e4, use_rope: bool = True):
-    """x: [B, S, D] -> q [B,H,S,Dh], k/v [B,Hkv,S,Dh] (k rotated)."""
+             rope_theta: float = 1e4, qk_norm: bool = False,
+             use_rope: bool = True):
+    """x: [B, S, D] -> q [B,H,S,Dh], k/v [B,Hkv,S,Dh] (k rotated).
+    ``qk_norm``: q and k are rms-normalized over the head dim (weights
+    ``p["q_norm"]``, ``p["k_norm"]``) after the projection, before RoPE."""
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim).transpose(1, 2)
     k = (x @ p["wk"]).reshape(B, S, n_kv, head_dim).transpose(1, 2)
     v = (x @ p["wv"]).reshape(B, S, n_kv, head_dim).transpose(1, 2)
+    if qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)

@@ -21,6 +21,16 @@ ModelApi:
       -> (last_logits [1, V], scratch)
   prefill_chunk_insert(cfg, pack_cfg, capacity, cache, slot, scratch)
       -> cache with row ``slot`` replaced
+  prefill_prefix(params, cfg, pack_cfg, capacity, cache, slot, batch,
+                 prefix_phys, k_perm, v_perm, n_prefix=...)
+      -> (last_logits [1, V], cache): a prefix-cache admission (paged)
+  prefix_chunk_bounds(pack_cfg, prompt_len, n_prefix) -> segment bounds
+  prefix_chunk_init(cfg, pack_cfg, capacity, cache, prefix_phys, k_perm,
+                    v_perm, n_prefix=..., prompt_len=..., device=...) -> mini
+  prefix_chunk(params, cfg, pack_cfg, mini, tokens, n_ctx=...)
+      -> (last_logits [1, V], mini)
+  prefix_chunk_insert(pack_cfg, cache, slot, mini, prefix_phys,
+                      n_prefix=..., prompt_len=...) -> cache
   supports_paged: the decode state is page-addressable (paged storage)
 Caches are updated in place and returned.
 """
@@ -46,6 +56,11 @@ class ModelApi:
     prefill_chunk_init: Callable
     prefill_chunk: Callable
     prefill_chunk_insert: Callable
+    prefill_prefix: Callable
+    prefix_chunk_bounds: Callable
+    prefix_chunk_init: Callable
+    prefix_chunk: Callable
+    prefix_chunk_insert: Callable
     supports_paged: bool
 
 
@@ -62,6 +77,11 @@ def _transformer_api() -> ModelApi:
         prefill_chunk_init=transformer.prefill_chunk_init,
         prefill_chunk=transformer.prefill_chunk,
         prefill_chunk_insert=transformer.prefill_chunk_insert,
+        prefill_prefix=transformer.prefill_into_slot_prefix,
+        prefix_chunk_bounds=transformer.prefix_chunk_bounds,
+        prefix_chunk_init=transformer.prefix_chunk_init,
+        prefix_chunk=transformer.prefix_chunk,
+        prefix_chunk_insert=transformer.prefix_chunk_insert,
         supports_paged=True,
     )
 

@@ -24,10 +24,13 @@ from ..core.cache import (
     insert_row_paged,
     mask_free_slots,
     paged_mini_spec,
+    prefill_append,
     prefill_cache,
     reset_slot,
+    seed_prefix_from_pages,
     slice_compressed,
 )
+from ..core.tiered import dequantize_tiered, slice_tiered_prefix
 from ..kernels import (
     dense_decode_attention,
     packed_decode_attention,
@@ -35,6 +38,8 @@ from ..kernels import (
 )
 from ..utils import round_up
 from .layers import (
+    attention_norm_init,
+    ctx_attention,
     dense_init,
     flash_attention,
     mlp_apply,
@@ -61,7 +66,8 @@ _LAYER_SHAPES = {  # name -> (d_in, d_out) as functions of the config
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random bf16 weights from ``gen``, on ``gen``'s device. Same layout
     and scales as the reference's init (normal / sqrt(d_in) matrices,
-    unit norms, 0.02 embedding); the draws differ (another generator)."""
+    unit norms, 0.02 embedding; ``q_norm`` / ``k_norm`` ``[L, hd]`` when
+    ``cfg.qk_norm``); the draws differ (another generator)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = gen.device
@@ -77,6 +83,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
         for i in range(L):
             w[i] = dense_init(gen, d_in, d_out, device=dev)
         layers[grp][name] = w
+    if cfg.qk_norm:
+        for name, w in attention_norm_init(cfg.hd, dev).items():
+            layers["attn"][name] = w.expand(L, cfg.hd).clone()
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                         dtype=torch.float32, device=dev) * 0.02
     return {
@@ -93,6 +102,14 @@ def _layer(params: dict, i: int) -> dict:
     return {"ln1": lp["ln1"][i], "ln2": lp["ln2"][i],
             "attn": {k: v[i] for k, v in lp["attn"].items()},
             "mlp": {k: v[i] for k, v in lp["mlp"].items()}}
+
+
+def _qkv(p: dict, h: torch.Tensor, cfg: ArchConfig, positions):
+    """One layer's q, k, v of the hidden states ``h`` (``layers.qkv_proj``
+    with the config's heads, RoPE and qk-norm)."""
+    return qkv_proj(p["attn"], rmsnorm(h, p["ln1"]), cfg.n_heads,
+                    cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
+                    qk_norm=cfg.qk_norm, use_rope=cfg.use_rope)
 
 
 def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -128,9 +145,7 @@ def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
     cache = []
     for i in range(cfg.n_layers):
         p = _layer(params, i)
-        q, k, v = qkv_proj(p["attn"], rmsnorm(h, p["ln1"]), cfg.n_heads,
-                           cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
-                           cfg.use_rope)
+        q, k, v = _qkv(p, h, cfg, positions)
         attn = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
@@ -217,9 +232,7 @@ def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
     T = min(S, round_up(n_ctx + Sc, min(1024, S)))
     for i in range(cfg.n_layers):
         p = _layer(params, i)
-        q, k, v = qkv_proj(p["attn"], rmsnorm(h, p["ln1"]), cfg.n_heads,
-                           cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
-                           cfg.use_rope)
+        q, k, v = _qkv(p, h, cfg, positions)
         ks, vs = scratch["k"][i], scratch["v"][i]
         ks[:, :, n_ctx:n_ctx + Sc] = k[:, :, :Sc]
         vs[:, :, n_ctx:n_ctx + Sc] = v[:, :, :Sc]
@@ -247,6 +260,141 @@ def prefill_chunk_insert(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
             for k, v in zip(scratch["k"], scratch["v"])]
     _insert_rows(cache, slot, rows, n_pages)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# prefix-cache admission (paged storage)
+# ---------------------------------------------------------------------------
+
+
+def _prefill_segment(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
+                     mini: list[LayerKVCache], tokens: torch.Tensor,
+                     n_ctx: int):
+    """One segment of a prefix-cache admission: forward ``tokens`` ([1, S])
+    at positions ``n_ctx + arange(S)`` with the mini-cache's first
+    ``n_ctx`` compressed tokens as read-only context, appending the
+    segment's own K/V to the mini-cache IN PLACE.
+
+    The context is DEQUANTIZED for the segment's attention (policy 'none'
+    reads its raw tokens), so a segment's output depends only on the
+    prompt up to its end: any page boundary is an exact resume point.
+    Returns (last-token logits [1, V], mini)."""
+    tokens = tokens.to(torch.int64)
+    h = params["embed"][tokens]
+    B, S, _ = h.shape
+    positions = n_ctx + torch.arange(S, device=h.device)
+    sm_scale = 1.0 / (cfg.hd ** 0.5)
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        q, k, v = _qkv(p, h, cfg, positions)
+        layer = mini[i]
+        if n_ctx:
+            if pack_cfg.policy == "none":
+                ck, cv = layer.raw_k[..., :n_ctx, :], layer.raw_v[..., :n_ctx, :]
+            else:
+                ck = dequantize_tiered(slice_tiered_prefix(layer.k, n_ctx)).transpose(-1, -2)
+                cv = dequantize_tiered(slice_tiered_prefix(layer.v, n_ctx)).transpose(-1, -2)
+            k_all = torch.cat([ck.to(torch.float32), k.to(torch.float32)], dim=2)
+            v_all = torch.cat([cv.to(torch.float32), v.to(torch.float32)], dim=2)
+        else:
+            k_all, v_all = k, v
+        attn = ctx_attention(q, k_all, v_all, n_ctx, sm_scale)
+        attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+        h = h + attn.to(h.dtype) @ p["attn"]["wo"]
+        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+        prefill_append(layer, k, v, calibrate=n_ctx == 0)
+    return _head(params, h), mini
+
+
+def prefix_chunk_bounds(pack_cfg: PackKVConfig, prompt_len: int,
+                        n_prefix: int) -> list[int]:
+    """Segment bounds of a prefix-cache admission from ``n_prefix``: one
+    page a segment up to the prompt's last full page, then the rest."""
+    page = pack_cfg.page_size
+    Lb = (prompt_len // pack_cfg.block) * pack_cfg.block
+    Lp = (Lb // page) * page
+    bounds = list(range(n_prefix, Lp + 1, page))
+    if prompt_len > Lp:
+        bounds.append(prompt_len)
+    return bounds
+
+
+def prefix_chunk_init(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
+                      cache: list[LayerKVCache], prefix_phys: torch.Tensor,
+                      k_perm, v_perm, *, n_prefix: int, prompt_len: int,
+                      device="cuda") -> list[LayerKVCache]:
+    """The dense B=1 mini-cache of a prefix-cache admission, seeded with
+    the matched shared pages ``prefix_phys`` and their donor's channel
+    permutations (``k_perm`` / ``v_perm``: [n_layers, H_kv, D], or None
+    for policy 'none') when ``n_prefix > 0``."""
+    dense_cfg, cap_mini, _ = paged_mini_spec(pack_cfg, prompt_len)
+    mini = alloc_cache(cfg, dense_cfg, 1, cap_mini, device)
+    if n_prefix:
+        for i, (layer, m) in enumerate(zip(cache, mini)):
+            seed_prefix_from_pages(layer, m, prefix_phys, n_prefix,
+                                   None if k_perm is None else k_perm[i],
+                                   None if v_perm is None else v_perm[i])
+    return mini
+
+
+def prefix_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
+                 mini: list[LayerKVCache], tokens: torch.Tensor, *, n_ctx: int):
+    """One page-aligned segment of a prefix-cache admission
+    (``_prefill_segment``)."""
+    return _prefill_segment(params, cfg, pack_cfg, mini, tokens, n_ctx)
+
+
+def prefix_chunk_insert(pack_cfg: PackKVConfig, cache: list[LayerKVCache],
+                        slot: int, mini: list[LayerKVCache],
+                        prefix_phys: torch.Tensor, *, n_prefix: int,
+                        prompt_len: int):
+    """Finish a prefix-cache admission: map the ``n_prefix`` shared tokens'
+    pages into row ``slot`` by reference and scatter the rest of the
+    mini-cache into fresh pages, IN PLACE."""
+    _, _, n_pages = paged_mini_spec(pack_cfg, prompt_len)
+    for dst, src in zip(cache, mini):
+        insert_row_paged(dst, slot, src, n_pages,
+                         n_shared=n_prefix // pack_cfg.page_size,
+                         shared_phys=prefix_phys)
+    return cache
+
+
+def prefill_into_slot_prefix(params: dict, cfg: ArchConfig,
+                             pack_cfg: PackKVConfig, capacity: int,
+                             cache: list[LayerKVCache], slot: int, batch: dict,
+                             prefix_phys: torch.Tensor, k_perm, v_perm, *,
+                             n_prefix: int):
+    """Prefix-cache admission of ONE request into row ``slot``, IN PLACE:
+    a chunked prefill, one page a segment, through a dense mini-cache.
+
+    The first segment calibrates the channel permutation; each later one
+    attends to the compressed earlier pages. The ``n_prefix`` tokens
+    (page-aligned, below the prompt length) whose pool pages
+    ``prefix_phys`` the host's prefix index matched are not recomputed:
+    their pages are mapped into the slot by reference and the suffix
+    compresses under the donor's permutation (``k_perm`` / ``v_perm``), so
+    a hit reproduces a cold admission bit for bit. Returns (last-token
+    logits [1, V], cache)."""
+    if not pack_cfg.paged:
+        raise ValueError("prefix-cache admission needs paged storage")
+    tokens = batch["tokens"]
+    S = tokens.shape[-1]
+    page = pack_cfg.page_size
+    Lp = (S // pack_cfg.block) * pack_cfg.block // page * page
+    if n_prefix % page or n_prefix > Lp or n_prefix >= S:
+        raise ValueError(f"matched prefix {n_prefix} must be whole pages "
+                         f"within the prompt's {Lp} and below its {S} tokens")
+    mini = prefix_chunk_init(cfg, pack_cfg, capacity, cache, prefix_phys,
+                             k_perm, v_perm, n_prefix=n_prefix, prompt_len=S,
+                             device=tokens.device)
+    bounds = prefix_chunk_bounds(pack_cfg, S, n_prefix)
+    logits = None
+    for s0, s1 in zip(bounds, bounds[1:]):
+        logits, mini = _prefill_segment(params, cfg, pack_cfg, mini,
+                                        tokens[:, s0:s1], n_ctx=s0)
+    prefix_chunk_insert(pack_cfg, cache, slot, mini, prefix_phys,
+                        n_prefix=n_prefix, prompt_len=S)
+    return logits, cache
 
 
 def reset_cache_slot(cache: list[LayerKVCache], slot: int):
@@ -283,9 +431,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
     rows = flush_rows(cache[0])  # one host read per step, not per layer
     for i in range(cfg.n_layers):
         p = _layer(params, i)
-        q, k, v = qkv_proj(p["attn"], rmsnorm(h, p["ln1"]), cfg.n_heads,
-                           cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
-                           cfg.use_rope)
+        q, k, v = _qkv(p, h, cfg, positions)
         qd = q[:, :, 0]
         layer = append_token(cache[i], k, v, rows)
         if layer.cfg.policy == "none":

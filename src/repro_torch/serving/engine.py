@@ -27,9 +27,16 @@ Invariants the scheduler keeps (as the reference's):
   * paged: reserved pages never exceed ``pool_pages - page_watermark``;
   * a retired slot's pages are back in the pool before the next admission.
 
-The prefix cache, speculative decode, preemption, sessions and meshes are
-not ported yet (ROADMAP.md); where the reference consults them, this
-engine takes the branch the reference takes when they are off.
+PREFIX-CACHE engines (``EngineConfig.prefix_cache``, paged only) keep a
+host-side index of the full compressed pages of admitted prompts
+(``PrefixIndex``): an admission whose prompt starts with indexed pages
+maps them into its slot by reference, reserves and computes only its
+suffix, and gives the same bytes and tokens as a cold admission. Cold
+index pages are evicted (LRU leaves) before admission would block.
+
+Speculative decode, preemption, sessions and meshes are not ported yet
+(ROADMAP.md); where the reference consults them, this engine takes the
+branch the reference takes when they are off.
 """
 from __future__ import annotations
 
@@ -41,7 +48,13 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.cache import PackKVConfig, bucket_length, calibrate_specs
+from ..core.cache import (
+    PackKVConfig,
+    acquire_pages,
+    bucket_length,
+    calibrate_specs,
+    release_pages,
+)
 from ..models import get_model
 from ..utils import cdiv
 
@@ -64,6 +77,9 @@ class EngineConfig:
     pool_pages: int | None = None  # pages in the pool; None = max_batch *
     #   capacity / page_size (no oversubscription)
     page_watermark: int = 0  # spare pages admission always holds back
+    # shared-prefix page cache (paged storage only):
+    prefix_cache: bool = False  # reuse indexed prompt pages across requests
+    prefix_cache_pages: int | None = None  # most pages the index may pin
     debug_invariants: bool = False  # check refcount conservation after every
     #   admit/retire (a device read per check: tests and bring-up only)
     device: str = "cuda"
@@ -82,6 +98,18 @@ class Engine:
         self.ecfg = ecfg
         self.device = torch.device(ecfg.device)
         self.api = get_model(cfg)
+        if ecfg.prefix_cache:
+            if self.api.prefill_prefix is None:
+                raise ValueError(f"family {cfg.family!r} cannot serve "
+                                 "--prefix-cache: it has no KV pages to share")
+            if not ecfg.paged:
+                raise ValueError("--prefix-cache requires --paged: shared "
+                                 "prefixes live in the refcounted page pool")
+            if cfg.window:
+                raise ValueError(
+                    "--prefix-cache does not support sliding-window attention "
+                    f"(window={cfg.window}): evicted window tokens break "
+                    "page-aligned prefix identity")
         if ecfg.paged:
             if not self.api.supports_paged:
                 raise ValueError(f"family {cfg.family!r} cannot serve paged: "
@@ -206,6 +234,57 @@ class Engine:
         logits, scratch = self.chunk_step(scratch, tokens, n_ctx)
         return logits, self.chunk_insert(cache, slot, scratch)
 
+    # -- prefix-cache admission ---------------------------------------------
+    def _page_ids(self, pages) -> torch.Tensor:
+        """Host page ids as an int32 device tensor."""
+        return torch.as_tensor(np.asarray(pages, np.int64), dtype=torch.int32,
+                               device=self.device)
+
+    def insert_request_prefix(self, cache, slot: int, tokens, pages, perms):
+        """Prefix-cache admission in one call: ``pages`` are the physical
+        ids of the matched page-aligned prompt prefix (empty for a cold
+        admission), ``perms`` the index entry's (k_perm, v_perm) or None.
+        Returns (last logits [V], cache)."""
+        logits, cache = self.api.prefill_prefix(
+            self.params, self.cfg, self.pack_cfg, self.ecfg.capacity, cache,
+            slot, {"tokens": self._tokens(tokens)[None]}, self._page_ids(pages),
+            *(perms or (None, None)), n_prefix=len(pages) * self.ecfg.page_size)
+        return logits[0], cache
+
+    def prefix_chunk_bounds(self, prompt_len: int, n_matched_pages: int):
+        """Segment bounds of an interleaved prefix-cache admission."""
+        return self.api.prefix_chunk_bounds(
+            self.pack_cfg, prompt_len, n_matched_pages * self.ecfg.page_size)
+
+    def prefix_chunk_start(self, cache, prompt_len: int, pages, perms):
+        """The admission's mini-cache, seeded with the matched pages."""
+        return self.api.prefix_chunk_init(
+            self.cfg, self.pack_cfg, self.ecfg.capacity, cache, self._page_ids(pages),
+            *(perms or (None, None)), n_prefix=len(pages) * self.ecfg.page_size,
+            prompt_len=prompt_len, device=self.device)
+
+    def prefix_chunk_step(self, mini, tokens, n_ctx: int):
+        """One page-aligned segment. Returns (last-token logits [V], mini)."""
+        logits, mini = self.api.prefix_chunk(
+            self.params, self.cfg, self.pack_cfg, mini,
+            self._tokens(tokens)[None], n_ctx=n_ctx)
+        return logits[0], mini
+
+    def prefix_chunk_finish(self, cache, slot: int, mini, pages, prompt_len: int):
+        """Write the finished mini-cache into row ``slot``: matched pages by
+        reference, the rest into fresh pages."""
+        return self.api.prefix_chunk_insert(
+            self.pack_cfg, cache, slot, mini, self._page_ids(pages),
+            n_prefix=len(pages) * self.ecfg.page_size, prompt_len=prompt_len)
+
+    def index_acquire(self, cache, ids):
+        """Pin pages for the prefix index (+1 reference each)."""
+        return acquire_pages(cache, self._page_ids(ids))
+
+    def index_release(self, cache, ids):
+        """Unpin evicted index pages (-1 reference; freed at zero)."""
+        return release_pages(cache, self._page_ids(ids))
+
     def free_slot(self, cache, slot: int):
         return self.api.reset_slot(cache, slot)
 
@@ -263,6 +342,15 @@ class SlotStats:
     # chunked admission (zero when prefill_chunk_pages == 0):
     prefill_chunks: int = 0  # bounded prefill dispatches (a prompt within
     #   one chunk budget takes the monolithic insert and counts zero)
+    # prefix cache (zeros when it is off):
+    prefix_lookups: int = 0  # admissions that consulted the prefix index
+    prefix_hits: int = 0  # admissions that matched at least one full page
+    prefix_pages_shared: int = 0  # pages mapped by reference (cumulative)
+    prefix_evictions: int = 0  # index entries dropped (pressure or cap)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_hits / self.prefix_lookups if self.prefix_lookups else 0.0
 
     @property
     def occupancy(self) -> float:
@@ -274,6 +362,99 @@ class SlotStats:
     def decode_tok_s(self) -> float:
         """Tokens per second over the whole run, admissions included."""
         return self.tokens_out / self.wall_s if self.wall_s else 0.0
+
+
+class _PrefixNode:
+    """One full compressed page of a cached prompt prefix (a trie node)."""
+
+    __slots__ = ("chunk", "page", "parent", "children", "last_used", "perms")
+
+    def __init__(self, chunk: bytes, page: int, parent):
+        self.chunk = chunk  # the raw token ids of this page's span (the key)
+        self.page = page  # physical pool page id (one index reference held)
+        self.parent = parent  # None at depth 0
+        self.children: dict[bytes, "_PrefixNode"] = {}
+        self.last_used = 0
+        self.perms = None  # depth 0 only: (k_perm, v_perm) [n_layers, H_kv, D]
+
+
+class PrefixIndex:
+    """Host-side content-addressed index over FULL compressed prompt pages.
+
+    A trie keyed by page-aligned chunks of raw prompt token ids; each node
+    owns one physical pool page and holds ONE device reference on it
+    (``core.cache.acquire_pages``), so indexed pages outlive their slot and
+    are never handed out by the allocator. Lookup walks the longest
+    matching chain; eviction removes LRU LEAVES only, skipping pages
+    mapped into a live slot (a shared page is reserved by no slot).
+    Depth-0 nodes carry the donor's page-0 channel calibration. Pure host
+    state: every device change is the ``SlotServer``'s, through
+    ``Engine.index_acquire`` / ``index_release``."""
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self.roots: dict[bytes, _PrefixNode] = {}
+        self.n_held = 0  # pages the index holds a reference on
+        self.pages: set[int] = set()  # their ids (each in exactly one node)
+        self._clock = 0
+
+    def chunks(self, tokens) -> list[bytes]:
+        """Page-aligned raw-token-id chunks (the trie keys)."""
+        t = np.ascontiguousarray(np.asarray(tokens, np.int64))
+        p = self.page_size
+        return [t[i * p:(i + 1) * p].tobytes() for i in range(len(t) // p)]
+
+    def touch(self, node: _PrefixNode) -> None:
+        self._clock += 1
+        node.last_used = self._clock
+
+    def descend(self, parent, chunk: bytes):
+        return (self.roots if parent is None else parent.children).get(chunk)
+
+    def lookup(self, tokens, max_pages: int):
+        """Longest-prefix match, LRU-bumping the path. Returns (page ids,
+        (k_perm, v_perm) or None)."""
+        pages: list[int] = []
+        perms = None
+        node = None
+        for chunk in self.chunks(tokens)[:max_pages]:
+            node = self.descend(node, chunk)
+            if node is None:
+                break
+            self.touch(node)
+            if node.perms is not None:
+                perms = node.perms
+            pages.append(node.page)
+        return pages, perms
+
+    def insert(self, parent, chunk: bytes, page: int, perms=None):
+        node = _PrefixNode(chunk, page, parent)
+        self.touch(node)
+        node.perms = perms if parent is None else None
+        (self.roots if parent is None else parent.children)[chunk] = node
+        self.n_held += 1
+        self.pages.add(page)
+        return node
+
+    def evict_lru(self, protected: set[int]):
+        """Drop the least recently used unprotected LEAF; returns its page
+        id (the caller releases the device reference) or None."""
+        best = None
+        stack = list(self.roots.values())
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if n.children or n.page in protected:
+                continue
+            if best is None or n.last_used < best.last_used:
+                best = n
+        if best is None:
+            return None
+        owner = self.roots if best.parent is None else best.parent.children
+        del owner[best.chunk]
+        self.n_held -= 1
+        self.pages.discard(best.page)
+        return best.page
 
 
 class _Active:
@@ -299,21 +480,25 @@ class _Active:
 
 class _PrefillTask:
     """An in-flight chunked admission: one request advancing through its
-    prefill segments, one per scheduler step. The slot (and its pages) is
-    claimed at the start but stays ``None`` in the slot table until the
-    last segment inserts the row; decode launches in between treat it as
-    a free row."""
+    prefill segments. The slot (and its pages) is claimed at the start but
+    stays ``None`` in the slot table until the last segment inserts the
+    row; decode launches in between treat it as a free row."""
 
-    __slots__ = ("req", "slot", "scratch", "bounds", "idx", "logits")
+    __slots__ = ("req", "slot", "kind", "scratch", "bounds", "idx", "logits",
+                 "match_pages")
 
-    def __init__(self, req: Request, slot: int, scratch: dict,
-                 bounds: list[int]):
+    def __init__(self, req: Request, slot: int, kind: str, scratch,
+                 bounds: list[int], match_pages: tuple[int, ...] = ()):
         self.req = req
         self.slot = slot
-        self.scratch = scratch  # raw prompt K/V (models.prefill_chunk_init)
+        self.kind = kind  # "plain" | "prefix"
+        # plain: raw prompt K/V (models.prefill_chunk_init); prefix: the
+        # dense mini-cache (models.prefix_chunk_init)
+        self.scratch = scratch
         self.bounds = bounds  # segment offsets; [i, i+1) is one dispatch
         self.idx = 0  # next segment
         self.logits = None  # the last segment's logits seed decode
+        self.match_pages = match_pages  # prefix: pages shared by reference
 
     @property
     def done(self) -> bool:
@@ -338,6 +523,12 @@ class SlotServer:
     worst-case page count (``ceil(min(capacity, prompt + max_new) /
     page_size)``) and admission blocks, FIFO order kept, while
     reservations plus the watermark would overflow the pool.
+
+    PREFIX-CACHE engines look up the longest page-aligned prompt prefix
+    already in the index; its pages are mapped by reference (a hit
+    reserves only its suffix pages) and every full page of the admitted
+    prompt is registered. Under page pressure, cold index prefixes (LRU
+    leaves mapped into no live slot) are evicted before admission blocks.
     """
 
     def __init__(self, engine: Engine, eos_id: int | None = None):
@@ -354,16 +545,22 @@ class SlotServer:
         self.queue: deque[Request] = deque()
         self.done: dict[int, Request] = {}
         self.stats = SlotStats(n_slots=self.n_slots)
-        self._reserved: dict[int, int] = {}  # slot -> pages it may pop
+        self._reserved: dict[int, int] = {}  # slot -> pages it may NEWLY pop
+        self._index = (PrefixIndex(engine.ecfg.page_size)
+                       if engine.ecfg.prefix_cache else None)
+        self._slot_shared: dict[int, tuple[int, ...]] = {}  # slot -> mapped pages
         self._task: _PrefillTask | None = None  # in-flight chunked admission
 
     # -- paged admission accounting ----------------------------------------
     @property
     def _pages_avail(self) -> int:
-        """Pool pages not spoken for: total minus the watermark minus every
-        slot's reservation."""
+        """Pool pages not spoken for: total minus the watermark, minus every
+        slot's reservation of pages it may newly pop, minus the pages the
+        prefix index pins (reclaimable on demand, ``_evict_to_fit``)."""
         total = self.engine.pack_cfg.pool_pages
-        return total - self.engine.ecfg.page_watermark - sum(self._reserved.values())
+        held = self._index.n_held if self._index is not None else 0
+        return (total - self.engine.ecfg.page_watermark
+                - sum(self._reserved.values()) - held)
 
     def _pages_needed(self, req: Request) -> int:
         """Worst-case resident pages over the request's lifetime: its
@@ -372,20 +569,93 @@ class SlotServer:
         return cdiv(min(ecfg.capacity, len(req.tokens) + req.max_new),
                     ecfg.page_size)
 
-    def _fit_pages(self, need: int) -> bool:
-        """Whether ``need`` pages are reservable now; a miss is one
-        admission block (FIFO order is kept: the head waits for a
-        retirement)."""
-        if need <= self._pages_avail:
+    def _fit_pages(self, need_new: int, protected: set[int]) -> bool:
+        """Whether ``need_new`` pages are reservable now, after evicting
+        cold index prefixes; a miss is one admission block (FIFO order is
+        kept: the head waits for a retirement)."""
+        if self._evict_to_fit(need_new, protected):
             return True
         self.stats.admission_blocks += 1
         return False
 
-    def _reserve(self, slot: int, req: Request) -> None:
+    def _reserve(self, slot: int, req: Request, n_shared: int) -> None:
+        """Reserve the pages ``req`` may newly pop: a hit's shared pages
+        reserve none."""
         if self.engine.ecfg.paged:
-            self._reserved[slot] = self._pages_needed(req)
+            self._reserved[slot] = self._pages_needed(req) - n_shared
             self.stats.pages_reserved_peak = max(self.stats.pages_reserved_peak,
                                                  sum(self._reserved.values()))
+
+    # -- prefix cache --------------------------------------------------------
+    def _match(self, req: Request):
+        """Longest page-aligned prefix the index serves for ``req``, one
+        token short of the prompt at most (admission needs a suffix for
+        its last-token logits). Returns (page ids, perms or None)."""
+        max_m = (len(req.tokens) - 1) // self.engine.ecfg.page_size
+        return self._index.lookup(req.tokens, max_m)
+
+    def _live_shared(self) -> set[int]:
+        """Shared pages a live slot maps by reference."""
+        return {p for t in self._slot_shared.values() for p in t}
+
+    def _evict_to_fit(self, need_new: int, protected: set[int]) -> bool:
+        """Evict index pages (LRU leaves first) until ``need_new`` pages
+        fit; never pages mapped into a live slot (no reservation covers
+        them) or ``protected`` (the pending admission's match)."""
+        if self._index is None:
+            return need_new <= self._pages_avail
+        protected = protected | self._live_shared()
+        while need_new > self._pages_avail:
+            page = self._index.evict_lru(protected)
+            if page is None:
+                return False
+            self.cache = self.engine.index_release(self.cache, [page])
+            self.stats.prefix_evictions += 1
+        return True
+
+    def _register(self, req: Request, slot: int) -> None:
+        """Index every full compressed page of the freshly admitted prompt:
+        matched pages are bumped, new ones get nodes and one device
+        reference each. Within ``prefix_cache_pages`` by evicting LRU
+        leaves first; registration stops when nothing is evictable (a
+        shorter chain is still a correct trie)."""
+        pack = self.engine.pack_cfg
+        page = self.engine.ecfg.page_size
+        k = (len(req.tokens) // pack.block) * pack.block // page
+        if not k:
+            return
+        cap = self.engine.ecfg.prefix_cache_pages
+        row = self.cache[0].pages.page_table[slot, :k].tolist()
+        perms = None
+        if pack.policy != "none":  # a copy: the slot's rows are reused
+            perms = (torch.stack([c.k.chan_perm[slot] for c in self.cache]),
+                     torch.stack([c.v.chan_perm[slot] for c in self.cache]))
+        protected = self._live_shared() | set(row)
+        acquired: list[int] = []
+        parent = None
+        for d, chunk in enumerate(self._index.chunks(req.tokens)[:k]):
+            node = self._index.descend(parent, chunk)
+            if node is None:
+                if cap is not None and self._index.n_held >= cap:
+                    ev = self._index.evict_lru(protected)
+                    if ev is None:
+                        break
+                    self.cache = self.engine.index_release(self.cache, [ev])
+                    self.stats.prefix_evictions += 1
+                node = self._index.insert(parent, chunk, row[d],
+                                          perms if d == 0 else None)
+                acquired.append(row[d])
+            else:
+                self._index.touch(node)
+            parent = node
+        if acquired:
+            self.cache = self.engine.index_acquire(self.cache, acquired)
+
+    def _count_lookup(self, pages: list[int]) -> None:
+        self.stats.prefix_lookups += 1
+        if pages:
+            self.stats.prefix_hits += 1
+            self.stats.prefix_pages_shared += len(pages)
 
     def _counters(self, act: _Active) -> tuple[int, int]:
         """Host mirror of an occupied row's (n_comp, n_resid), exact with
@@ -416,6 +686,8 @@ class SlotServer:
             assert int((ref > 0).sum()) + nf == ref.shape[0], (ref, nf)
             assert int((ref == 0).sum()) == nf, (ref, nf)
             assert (ref[free[:nf]] == 0).all(), (ref, free[:nf])
+            if self._index is not None:
+                assert all(ref[p] >= 1 for p in self._index.pages), self._index.pages
 
     # -- queue --------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -457,6 +729,7 @@ class SlotServer:
         self.slots[i] = None
         self.cache = self.engine.free_slot(self.cache, i)
         self._reserved.pop(i, None)
+        self._slot_shared.pop(i, None)  # its shared pages' refs went with it
         self._check_invariants()
 
     def _retire_slot(self, i: int) -> Request:
@@ -469,21 +742,36 @@ class SlotServer:
         return act.req
 
     # -- admission ------------------------------------------------------------
-    def _claim(self) -> int | None:
-        """A free slot (and, paged, its page reservation) for the queue
-        head, or None while admission is blocked."""
+    def _claim(self):
+        """A free slot for the queue head, its prefix match (page ids,
+        perms; empty without a prefix cache) and, paged, room for its
+        page reservation; None while admission is blocked."""
         if not self.queue or None not in self.slots:
             return None
+        head = self.queue[0]
+        pages, perms = [], None
+        if self._index is not None and self.cache is not None:
+            pages, perms = self._match(head)
         if self.engine.ecfg.paged and not self._fit_pages(
-                self._pages_needed(self.queue[0])):
+                self._pages_needed(head) - len(pages), set(pages)):
             return None
         if self.cache is None:
             self.cache = self.engine.alloc_slot_cache()
-        return self.slots.index(None)
+        return self.slots.index(None), pages, perms
 
-    def _insert(self, req: Request, i: int, finished: list[Request]) -> None:
-        """Monolithic prefill-insert of ``req`` into slot ``i``."""
-        logits, self.cache = self.engine.insert_request(self.cache, i, req.tokens)
+    def _insert(self, req: Request, i: int, finished: list[Request],
+                pages=(), perms=None) -> None:
+        """Monolithic prefill-insert of ``req`` into slot ``i`` (prefix
+        cache: its one-call prefix admission, then its registration)."""
+        if self._index is not None:
+            self._count_lookup(pages)
+            logits, self.cache = self.engine.insert_request_prefix(
+                self.cache, i, req.tokens, pages, perms)
+            self._slot_shared[i] = tuple(pages)
+            self._register(req, i)
+        else:
+            logits, self.cache = self.engine.insert_request(self.cache, i,
+                                                            req.tokens)
         self._seated(req, i, logits, finished)
 
     def _seated(self, req: Request, i: int, logits, finished: list[Request]):
@@ -496,10 +784,11 @@ class SlotServer:
         """Monolithic admission sweep (``prefill_chunk_pages == 0``): seat
         queue heads until the queue drains or admission blocks."""
         finished: list[Request] = []
-        while (i := self._claim()) is not None:
+        while (claim := self._claim()) is not None:
+            i, pages, perms = claim
             req = self.queue.popleft()
-            self._reserve(i, req)
-            self._insert(req, i, finished)
+            self._reserve(i, req, len(pages))
+            self._insert(req, i, finished, pages, perms)
         return finished
 
     def _activate(self, req: Request, i: int, tok: int) -> None:
@@ -514,42 +803,71 @@ class SlotServer:
 
     def _start_task(self, finished: list[Request]) -> _PrefillTask | None:
         """Claim a slot (and pages) for the queue head and build its
-        chunked admission; None while blocked. A prompt within one chunk
-        budget is admitted here by the monolithic insert (one dispatch
-        either way) and leaves no task."""
-        slot = self._claim()
-        if slot is None:
+        chunked admission; None while blocked. Without a prefix cache, a
+        prompt within one chunk budget is admitted here by the monolithic
+        insert (one dispatch either way) and leaves no task; with one,
+        every admission runs its page segments (a cold one calibrates on
+        its first page, which is what makes a later hit exact)."""
+        claim = self._claim()
+        if claim is None:
             return None
+        slot, pages, perms = claim
         req = self.queue.popleft()
-        self._reserve(slot, req)
-        S, c = len(req.tokens), self.engine.chunk_tokens()
+        self._reserve(slot, req, len(pages))
+        S = len(req.tokens)
+        if self._index is not None:
+            self._count_lookup(pages)
+            return _PrefillTask(req, slot, "prefix",
+                                self.engine.prefix_chunk_start(self.cache, S,
+                                                               pages, perms),
+                                self.engine.prefix_chunk_bounds(S, len(pages)),
+                                tuple(pages))
+        c = self.engine.chunk_tokens()
         if S <= c:
             self._insert(req, slot, finished)
             return None
-        return _PrefillTask(req, slot, self.engine.chunk_init(S),
+        return _PrefillTask(req, slot, "plain", self.engine.chunk_init(S),
                             sorted(set(range(0, S, c)) | {S}))
 
     def _advance_task(self, finished: list[Request]) -> None:
-        """One scheduler step's admission progress: one prefill segment;
-        the last one also inserts the row and activates it."""
+        """One scheduler step's admission progress: one plain segment (the
+        last one also inserts the row), or up to ``prefill_chunk_pages``
+        one-page prefix segments; a finished task's row is activated."""
         if self._task is None:
             self._task = self._start_task(finished)
         t = self._task
         if t is None:
             return
-        s0, s1 = t.bounds[t.idx], t.bounds[t.idx + 1]
-        seg = t.req.tokens[s0:s1]
-        if t.idx == len(t.bounds) - 2:  # last segment: chunk + insert
-            t.logits, self.cache = self.engine.chunk_final(
-                self.cache, t.slot, t.scratch, seg, s0)
-            t.scratch = None
-        else:
-            t.logits, t.scratch = self.engine.chunk_step(t.scratch, seg, s0)
-        t.idx += 1
-        self.stats.prefill_chunks += 1
+        budget = 1 if t.kind == "plain" else max(1, self.engine.ecfg.prefill_chunk_pages)
+        for _ in range(budget):
+            if t.done:
+                break
+            s0, s1 = t.bounds[t.idx], t.bounds[t.idx + 1]
+            seg = t.req.tokens[s0:s1]
+            if t.kind == "prefix":
+                t.logits, t.scratch = self.engine.prefix_chunk_step(t.scratch, seg, s0)
+            elif t.idx == len(t.bounds) - 2:  # last segment: chunk + insert
+                t.logits, self.cache = self.engine.chunk_final(
+                    self.cache, t.slot, t.scratch, seg, s0)
+                t.scratch = None
+            else:
+                t.logits, t.scratch = self.engine.chunk_step(t.scratch, seg, s0)
+            t.idx += 1
+            self.stats.prefill_chunks += 1
         if t.done:
             self._task = None
-            self._seated(t.req, t.slot, t.logits, finished)
+            self._finish_task(t, finished)
+
+    def _finish_task(self, t: _PrefillTask, finished: list[Request]) -> None:
+        """Activate a finished admission; a prefix task first writes its
+        row (shared pages by reference) and registers its pages (a plain
+        task's last segment already inserted the row)."""
+        if t.kind == "prefix":
+            self.cache = self.engine.prefix_chunk_finish(
+                self.cache, t.slot, t.scratch, t.match_pages, len(t.req.tokens))
+            self._slot_shared[t.slot] = t.match_pages
+            self._register(t.req, t.slot)
+        self._seated(t.req, t.slot, t.logits, finished)
 
     def _chunk_plan(self) -> tuple[int, int | None]:
         """(n_steps, n_bucket) for the next decode launch: no row may

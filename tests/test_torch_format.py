@@ -57,11 +57,13 @@ def test_cdiv_round_up():
 def test_configs_match_reference():
     from repro.configs import get_arch as j_get_arch
 
-    assert set(ARCHS) == set(SMOKES) == {"llama2-7b"}
-    for smoke in (False, True):
-        a = dataclasses.asdict(get_arch("llama2-7b", smoke=smoke))
-        b = dataclasses.asdict(j_get_arch("llama2-7b", smoke=smoke))
-        assert a == b
+    assert set(ARCHS) == set(SMOKES) == {"llama2-7b", "smollm-135m", "minicpm-2b",
+                                         "minitron-4b", "qwen3-32b"}
+    for name in ARCHS:
+        for smoke in (False, True):
+            a = dataclasses.asdict(get_arch(name, smoke=smoke))
+            b = dataclasses.asdict(j_get_arch(name, smoke=smoke))
+            assert a == b
     assert get_arch("llama2-7b").hd == 128
 
 

@@ -263,6 +263,8 @@ def _close_bound(got, want, mag, n: int):
     ((2, 8), (64, 64), 16, 2),
     ((4,), (128,), 8, 3),  # G=3: the kernels' GM=4 instantiation
     ((16,), (256,), 8, 8),  # 8 channel groups: more than are in flight
+    ((2, 4), (8, 56), 8, 3),  # D=64: a tier of 8 channels, one of 56 (two groups)
+    ((4,), (64,), 8, 8),  # D=64 at G=8: two full 32-channel groups
 ])
 def test_tier_matvec_kernels_match_plain_and_paged(cuda, widths, counts, pack, G):
     """K3 and K4 per tier over ragged rows (one empty): within the bound
@@ -407,3 +409,152 @@ def test_tier_matvec_ops_fused_match_ref_on_cuda(cuda):
                                                   n_valid=nv), got_s)
     assert torch.equal(ops.packed_weighted_v_paged(w, paged.v, paged.pages, n_valid=nv),
                        got_o)
+
+
+# the decode shapes the other dense configs give K2/K5: smollm-135m (G=3,
+# D=64), qwen3-32b (G=8, D=128), minicpm-2b (G=1, D=64); the specs are
+# narrow tiers as calibration gives them at these head dims
+NEW_SHAPES = [
+    (3, 64, (2, 4), (8, 56)),
+    (8, 128, (4,), (128,)),
+    (1, 64, (1, 2, 4, 8), (8, 8, 16, 32)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,D,widths,counts", NEW_SHAPES)
+def test_k2_k5_other_config_shapes(cuda, G, D, widths, counts):
+    """K2 and K5 at the new group sizes and head dims over ragged rows (one
+    empty): within tolerance of their plain versions, bitwise equal to
+    themselves, K5 bitwise equal to K2 on the gathered view at pages 64 and
+    256, and K2 over a 512-token bucket view equal to K2 over the capacity."""
+    gen = torch.Generator(device=cuda).manual_seed(G * 1000 + D)
+    spec = tt.TierSpec(widths, counts, 8)
+    cache = _random_cache(gen, 4, 3, D, 1024, spec, (1024, 0, 300, 700), cuda)
+    q = torch.randn((4, 3 * G, D), generator=gen, device=cuda)
+    n, sm = cache.n_comp, D ** -0.5
+    got = fused_packed_attention(q, cache.k, cache.v, n, sm)
+    again = fused_packed_attention(q, cache.k, cache.v, n, sm)
+    torch.cuda.synchronize()
+    want = fused_packed_attention_torch(q, cache.k, cache.v, n, sm)
+    split = fused_packed_attention_split_torch(q, cache.k, cache.v, n, sm)
+    for g, a, w, x in zip(got, again, want, split):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, **TOL)
+        torch.testing.assert_close(g, x, **TOL)
+    o, m, l = got
+    assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
+    n_half = torch.clamp(n, max=512)
+    view = tc.slice_compressed(cache, 512)
+    sliced = fused_packed_attention(q, view.k, view.v, n_half, sm)
+    full = fused_packed_attention(q, cache.k, cache.v, n_half, sm)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(sliced, full))
+    for page in (64, 256):
+        paged = _to_pool(cache, page, gen)
+        args = (q, paged.k, paged.v, paged.pages.page_table, n, 1024, sm)
+        k5 = fused_packed_attention_paged(*args, page_size=page)
+        torch.cuda.synchronize()
+        plain = fused_packed_attention_paged_torch(*args, page_size=page)
+        for g, a, w in zip(k5, got, plain):
+            assert torch.equal(g, a), page
+            torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.gpu
+def test_tier_matvec_ops_head_dim_64_on_cuda(cuda):
+    """The four ops entry points at D=64 and G=3 (smollm-135m's decode
+    shape) under a spec with an 8-channel tier: fused within rtol 1e-5 /
+    atol 1e-4 of ref, paged bitwise equal to dense."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    spec = tt.TierSpec((2, 4), (8, 56), 8)
+    cache = _random_cache(gen, 3, 3, 64, 1024, spec, (1024, 0, 333), cuda)
+    paged = _to_pool(cache, 256, gen)
+    q = torch.randn((3, 9, 64), generator=gen, device=cuda)
+    w = torch.softmax(torch.randn((3, 9, 1024), generator=gen, device=cuda), -1)
+    nv = cache.n_comp
+    got_s = ops.packed_qk_scores(q, cache.k, 0.125, n_valid=nv)
+    got_o = ops.packed_weighted_v(w, cache.v, n_valid=nv)
+    torch.testing.assert_close(got_s, ops.packed_qk_scores(q, cache.k, 0.125, n_valid=nv,
+                                                           backend="ref"), **TOL)
+    torch.testing.assert_close(got_o, ops.packed_weighted_v(w, cache.v, n_valid=nv,
+                                                            backend="ref"), **TOL)
+    assert torch.equal(ops.packed_qk_scores_paged(q, paged.k, paged.pages, 1024, 0.125,
+                                                  n_valid=nv), got_s)
+    assert torch.equal(ops.packed_weighted_v_paged(w, paged.v, paged.pages, n_valid=nv),
+                       got_o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["smollm-135m", "minicpm-2b", "minitron-4b", "qwen3-32b"])
+def test_smoke_config_engine_fused_equals_ref_on_cuda(cuda, name):
+    """Each other dense config's smoke engine on the card: K2 launched once
+    per layer and decode step, and the fused backend's greedy tokens those
+    of the plain reference backend but for near-ties."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    cfg = get_arch(name, smoke=True)
+    params = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    outs = {}
+    for backend in ("fused", "ref"):
+        eng = Engine(cfg, params, tc.PackKVConfig(),
+                     EngineConfig(capacity=512, max_batch=2, backend=backend))
+        server = SlotServer(eng)
+        rng = np.random.default_rng(0)
+        for i, n in enumerate((200, 130, 70)):
+            server.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab, n),
+                                  max_new=60))
+        fused_packed_attention.launches = 0
+        outs[backend] = {r.rid: list(r.output) for r in server.run()}
+        steps = server.stats.decode_steps
+        assert fused_packed_attention.launches == (
+            cfg.n_layers * steps if backend == "fused" else 0)
+    agree = np.mean([np.mean(np.equal(outs["fused"][i], outs["ref"][i]))
+                     for i in outs["ref"]])
+    assert agree > 0.5, outs
+
+
+@pytest.mark.gpu
+def test_prefix_hit_bit_identical_to_cold_on_cuda(cuda):
+    """The shared-prefix traffic of tests/test_torch_prefix.py on the card
+    (K5 over pages held by reference): 3 lookups, 2 hits, 4 pages shared,
+    K5 once per layer and decode step and K2 never, and every warm output
+    bitwise equal to a cold run on a fresh server."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    cfg = get_arch("llama2-7b", smoke=True)
+    params = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    eng = Engine(cfg, params, tc.PackKVConfig(),
+                 EngineConfig(capacity=512, max_batch=2, calib_tokens=128, decode_chunk=4,
+                              bucket_unit=64, paged=True, page_size=128, prefix_cache=True,
+                              debug_invariants=True))
+    sys_prompt = np.random.default_rng(11).integers(0, 512, 300)
+
+    def reqs():
+        r = np.random.default_rng(5)
+        return [Request(rid=i, max_new=m,
+                        tokens=np.concatenate([sys_prompt, r.integers(0, 512, n)]))
+                for i, (n, m) in enumerate(((40, 6), (60, 5), (25, 7)))]
+
+    def serve(rs):
+        srv = SlotServer(eng)
+        for r in rs:
+            srv.submit(r)
+        srv.run()
+        return srv
+
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    warm = serve(reqs())
+    s = warm.stats
+    assert (s.prefix_lookups, s.prefix_hits, s.prefix_pages_shared) == (3, 2, 4)
+    assert (fused_packed_attention.launches, fused_packed_attention_paged.launches) == \
+        (0, cfg.n_layers * s.decode_steps)
+    for r in reqs():
+        np.testing.assert_array_equal(warm.done[r.rid].output,
+                                      serve([r]).done[r.rid].output)
