@@ -53,8 +53,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      every prompt (dense) and the 1000-token one (paged), which must be
      bitwise equal, and the wall time per step of steady decode launches,
      dense and paged in turns.
+  6. serve_spec - speculative decode (spec_k 4: verify passes over windows
+     of 5) on the serve phases' engines and requests, 128 new tokens each
+     (cut from 160 to keep the phase near 90 s), in four runs: dense with the default n-gram drafter, dense with
+     a drafter replaying the serve phase's outputs with every third
+     proposal wrong (full, partial and zero acceptance), dense with a
+     drafter always wrong (zero acceptance: the backoff), paged (the
+     14-page pool) replaying serve_paged's outputs likewise. Every
+     request's tokens must equal its plain phase's bitwise; every run must
+     verify at least once; K2's (paged: K5's) launches must equal n_layers
+     x (plain steps + 5 x verify passes) and the other kernel's be 0; the
+     replay runs must accept some drafts but not all, the wrong drafter
+     none. Reports decode tok/s beside the plain phase's, acceptance,
+     tokens per model pass, degraded steps and the launches that tripped
+     the straggler watchdog, wall time; then (spec_rows) the plain path's
+     cost of its GEMMs at the window's height: a step's GEMM device time
+     at B and B x 5 rows, and the steady wall ms per step at spec_k 0
+     (rows 1) and 4 (rows 5), in turns.
 
-  6. matvec - the tier matvec entry points (packed_qk_scores,
+  7. matvec - the tier matvec entry points (packed_qk_scores,
      packed_weighted_v and their paged forms) and their kernels K3, K4
      (dense) and K6, K7 (paged), on caches built as in the kernel phase at
      its specs and shapes: each kernel against its plain version within
@@ -75,14 +92,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bitwise equal to them. Then the
      main path (matvec_path): the four entry points called once each with
      every launch count set to 0 first; each kernel must have launched.
-  7. serve_configs - smollm-135m, minicpm-2b and minitron-4b at full width
+  8. serve_configs - smollm-135m, minicpm-2b and minitron-4b at full width
      and depth (random bf16 weights), one after another, each freed before
      the next: dense storage, policy packkv, backend "fused", 4 slots,
      capacity 2048, monolithic admission, 4 requests of 32 new tokens. K2's
      launch count must equal n_layers x decode steps and K5's be 0; outputs
      in the vocabulary. Reports decode tok/s and compressed bytes per token
      against bf16.
-  8. serve_prefix - the llama2-7b engine freed, qwen3-32b at full width and
+  9. serve_prefix - the llama2-7b engine freed, qwen3-32b at full width and
      depth (64 layers, d_model 5120, 64 heads over 8 kv heads, hd 128,
      qk-norm, vocab 151936; 65.5 GB of bf16 weights) through paged storage
      (pages of 256) with the prefix cache, chunked admission (one page a
@@ -98,7 +115,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      wall time, peak device memory and compressed bytes per token.
 
 Then the kernels line (K2's launches summed over the dense serve phases,
-K5's over the paged and prefix ones) and, last, {"ok": true, "device":
+serve_spec's dense runs included, K5's over the paged, paged speculative
+and prefix ones) and, last, {"ok": true, "device":
 {...}}.
 """
 from __future__ import annotations
@@ -574,7 +592,9 @@ def phase_serve(engine, cfg, device) -> dict:
     emit(row)
     return {"launches": launches, "want_n_comp": want,
             "compressed_bytes_per_token": comp_bytes,
-            "outputs": {rid: np.asarray(r.output) for rid, r in done.items()}}
+            "outputs": {rid: np.asarray(r.output) for rid, r in done.items()},
+            "decode_tok_s": decode_tokens / s.decode_s,
+            "tokens_per_step": decode_tokens / s.decode_steps}
 
 
 def serve_prompts(cfg):
@@ -721,7 +741,175 @@ def phase_serve_paged(engine, cfg, dense: dict) -> dict:
           "compressed_bytes_per_token": dense["compressed_bytes_per_token"],
           "agreement_with_dense_phase": agree, "chunked_vs_monolithic": probe,
           "steady_ms_per_step": steady})
-    return {"launches": launches}
+    return {"launches": launches, "engine": paged,
+            "outputs": {rid: np.asarray(r.output) for rid, r in done.items()},
+            "decode_tok_s": decode_tokens / s.decode_s,
+            "tokens_per_step": decode_tokens / s.decode_steps}
+
+
+class ReplayDrafter:
+    """Proposes a plain run's own continuation of each request with every
+    ``corrupt``-th proposal made wrong (``corrupt`` 3: full, partial and
+    zero acceptance; 1: every proposal wrong). Draft content moves only
+    the acceptance, never the tokens."""
+
+    def __init__(self, outputs: dict, vocab: int, corrupt: int):
+        self.outputs = outputs  # {tuple(prompt): plain output tokens}
+        self.vocab, self.corrupt = vocab, corrupt
+        self.pos: dict[int, list] = {}
+
+    def seed(self, slot, tokens):
+        toks = tuple(int(t) for t in tokens)
+        self.pos[slot] = [self.outputs[toks[:-1]], 1]
+
+    def extend(self, slot, tokens):
+        self.pos[slot][1] += len(tuple(tokens))
+
+    def drop(self, slot):
+        self.pos.pop(slot, None)
+
+    def draft(self, slot, k):
+        stream, cur = self.pos[slot]
+        return [(int(t) + 1) % self.vocab if (cur + j) % self.corrupt == 0 else int(t)
+                for j, t in enumerate(stream[cur:cur + k])]
+
+
+SPEC_K = 4  # drafts a verify pass: windows of 5 (EngineConfig's default)
+SPEC_NEW = 128  # new tokens a request: the first 128 of the plain phases' 160
+
+
+def phase_serve_spec(engine, cfg, dense: dict, paged: dict) -> dict:
+    """Speculative decode on the serve phases' engines and requests, in
+    four runs (dense: the n-gram drafter, the replay drafter with every
+    third proposal wrong, a drafter always wrong; paged: the replay
+    drafter): every request's tokens bitwise equal to its plain phase's,
+    K2 (K5) launched n_layers x (plain steps + 5 x verify passes) times
+    and the other kernel never, acceptance within the run's range.
+
+    Cut to keep the phase near 90 s: 128 new tokens a request (the plain
+    phases ran 160; the first 128 are compared)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+    from repro_torch.serving import Engine, Request, SlotServer
+
+    prompts = serve_prompts(cfg)
+    w = SPEC_K + 1
+    total = {"dense": 0, "paged": 0}
+    runs = [("ngram", "dense", None), ("replay", "dense", 3), ("wrong", "dense", 1),
+            ("replay", "paged", 3)]
+    for drafter_name, mode, corrupt in runs:
+        base = engine if mode == "dense" else paged["engine"]
+        plain = dense if mode == "dense" else paged
+        check(base.ecfg.spec_k == SPEC_K, "the plain engine's GEMM height differs")
+        spec = Engine(cfg, base.params, base.pack_cfg, dataclasses.replace(
+            base.ecfg, calibrate=False, spec_decode=True, spec_k=SPEC_K))
+        outputs = {tuple(int(t) for t in p): plain["outputs"][i] for i, p in enumerate(prompts)}
+        drafter = None if corrupt is None else ReplayDrafter(outputs, cfg.vocab, corrupt)
+        server = SlotServer(spec, drafter=drafter)
+        for i, p in enumerate(prompts):
+            server.submit(Request(rid=i, tokens=p, max_new=SPEC_NEW))
+        # each launch the watchdog reads: (wall s, a verify pass?, verdict)
+        launches, observe = [], server._watchdog.observe
+
+        def observed(dt):
+            verdict = observe(dt)
+            n = server.stats.spec_launches
+            launches.append((dt, n > sum(v for _, v, _ in launches), verdict))
+            return verdict
+
+        server._watchdog.observe = observed
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        t0 = time.perf_counter()
+        done = {r.rid: r for r in server.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = server.stats
+        k2, k5 = fused_packed_attention.launches, fused_packed_attention_paged.launches
+        used, unused = (k2, k5) if mode == "dense" else (k5, k2)
+        want = cfg.n_layers * (s.decode_steps - s.spec_launches + w * s.spec_launches)
+        tag = f"serve_spec {mode} {drafter_name}"
+        check(len(done) == len(prompts), f"{tag}: not every request finished")
+        for rid, r in done.items():
+            check(np.array_equal(np.asarray(r.output), plain["outputs"][rid][:SPEC_NEW]),
+                  f"{tag}: request {rid} differs from plain decode")
+        check(s.spec_launches > 0, f"{tag}: no verify pass ran")
+        check(used == want and unused == 0,
+              f"{tag}: attention launches {used} (other {unused}) != {want}")
+        if drafter_name == "replay":
+            check(0 < s.spec_accepted < s.spec_drafted,
+                  f"{tag}: accepted {s.spec_accepted} of {s.spec_drafted}")
+        if drafter_name == "wrong":
+            check(s.spec_accepted == 0, f"{tag}: accepted {s.spec_accepted}")
+        # the launches that tripped the watchdog, beside the median before them
+        flagged = [{"launch": i, "s": dt, "verify_pass": v, "verdict": vd,
+                    "median_before_s": statistics.median(
+                        [d for d, _, _ in launches[max(0, i - 32):i]] or [dt])}
+                   for i, (dt, v, vd) in enumerate(launches) if vd in ("straggler", "exclude")]
+        decode_tokens = s.tokens_out - s.admitted
+        emit({"phase": "serve_spec", "mode": mode, "drafter": drafter_name,
+              "spec_k": SPEC_K, "requests": len(prompts), "max_new": SPEC_NEW,
+              "decode_steps": s.decode_steps, "verify_passes": s.spec_launches,
+              "plain_steps": s.decode_steps - s.spec_launches,
+              "drafted": s.spec_drafted, "accepted": s.spec_accepted,
+              "acceptance_rate": s.acceptance_rate,
+              "tokens_per_pass": decode_tokens / s.decode_steps,
+              "degraded_steps": s.degraded_steps, "degraded": server._spec_degraded,
+              "watchdog_flags": flagged[:8],
+              "k2_launches": k2, "k5_launches": k5, "wall_s": wall, "decode_s": s.decode_s,
+              "decode_tok_s": decode_tokens / s.decode_s,
+              "plain_decode_tok_s": plain["decode_tok_s"],
+              "plain_tokens_per_step": plain["tokens_per_step"]})
+        total[mode] += used
+        del server, done, spec
+    return total
+
+
+def phase_spec_rows(engine, cfg) -> None:
+    """The plain path's cost of running its GEMMs at the verify window's
+    height: a decode step's GEMM device time at B rows and at B x 5 (each
+    of llama2-7b's products timed on layer 0's weights, L2 flushed: a
+    step reads every weight once, cold), and the steady wall ms per step
+    of an engine at spec_k 0 (rows 1) against the serving engine's spec_k
+    4 (rows 5), in turns A B B A twice in this one process."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.serving import Engine
+
+    B, w = engine.ecfg.max_batch, SPEC_K + 1
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=engine.device)
+    flush = lambda: flush_buf.zero_()
+    lp = engine.params["layers"]
+    mats = [(lp[g][n][0], cfg.n_layers) for g, n in (
+        ("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+        ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))]
+    mats.append((engine.params["head"], 1))
+    gen = torch.Generator(device=engine.device).manual_seed(3)
+    gemm = {}
+    for rows in (1, w):
+        total = 0.0
+        for W, count in mats:
+            x = torch.randn((B, rows, W.shape[0]), generator=gen,
+                            device=engine.device).to(torch.bfloat16)
+            total += count * time_ms(lambda: x @ W, flush)
+        gemm[f"rows_{rows}"] = total
+    rows1 = Engine(cfg, engine.params, engine.pack_cfg,
+                   dataclasses.replace(engine.ecfg, calibrate=False, spec_k=0))
+    steady = {"rows_1": [], f"rows_{w}": []}
+    for _ in range(2):
+        for k, v in steady_step_ms({"rows_1": rows1, f"rows_{w}": engine}, cfg).items():
+            steady[k] += v
+    emit({"phase": "spec_rows", "B": B, "gemm_ms_per_step": gemm,
+          "steady_ms_per_step": steady,
+          "steady_median_ms": {k: statistics.median(v) for k, v in steady.items()}})
 
 
 def compressed_bytes_per_token(cfg, engine):
@@ -1331,6 +1519,9 @@ def main() -> int:
     k5 = phase_kernel_paged(engines, device)
     serve = phase_serve(engine, cfg, device)
     serve_paged = phase_serve_paged(engine, cfg, serve)
+    spec = phase_serve_spec(engine, cfg, serve, serve_paged)
+    del serve_paged["engine"]
+    phase_spec_rows(engine, cfg)
     mv = phase_matvec(engine, device)
     configs = phase_serve_configs(smollm, device)
     # qwen3-32b's 65.5 GB of weights need the card to themselves
@@ -1348,10 +1539,10 @@ def main() -> int:
     emit({"kernels": [
         row("fused_packed_attention", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:172", k2,
-            serve["launches"] + configs["launches"]),
+            serve["launches"] + spec["dense"] + configs["launches"]),
         row("fused_packed_attention_paged", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:375", k5,
-            serve_paged["launches"] + prefix["launches"]),
+            serve_paged["launches"] + spec["paged"] + prefix["launches"]),
         row("kpack_tier_scores", "tier_matvec.cu",
             "src/repro/kernels/kpack_matvec.py:69", mv["K3"], mv["K3"]["launches"]),
         row("vpack_tier_out", "tier_matvec.cu",

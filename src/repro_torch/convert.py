@@ -40,7 +40,7 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
             torch.bfloat16).to(device)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)  # keeps 0-d
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:

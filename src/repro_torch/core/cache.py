@@ -792,6 +792,49 @@ def append_token(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def append_window(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                  lens: torch.Tensor, rows: list[int] | None = None
+                  ) -> LayerKVCache:
+    """Speculative verify-window append, IN PLACE. k_new/v_new:
+    [B, H, w, D]; lens: int [B] in [1, w], row b's valid window length
+    (seed + drafts).
+
+    Position 0 (the seed, the row's last committed token) goes through
+    ``append_token`` with the caller's ``rows``: it may flush a block or
+    pop a page and it advances the counters, as a plain decode step does.
+    Drafts i = 1..w-1 are written into the residual buffer at
+    ``n_resid + i - 1`` (clipped to R - 1) where ``i < lens``, on the
+    device, with no counter moved and no flush: they stay invisible to
+    every masked read until ``commit_window`` advances ``n_resid`` over
+    the accepted prefix, and a rejected draft is dead bytes the next seed
+    overwrites. The caller caps ``lens`` so ``n_resid + lens - 1 <= R``
+    after the seed append (the scheduler's headroom cap), so a window
+    never crosses a flush or a page pop."""
+    w = k_new.shape[-2]
+    append_token(cache, k_new[..., :1, :], v_new[..., :1, :], rows)
+    R = cache.cfg.residual
+    for i in range(1, w):
+        write = (i < lens).reshape(-1, 1, 1, 1)
+        off = torch.clamp(cache.n_resid + (i - 1), 0, R - 1)
+        for buf, new in ((cache.resid_k, k_new), (cache.resid_v, v_new)):
+            idx = off.to(torch.int64).reshape(-1, 1, 1, 1).expand(
+                -1, buf.shape[1], 1, buf.shape[-1])
+            old = torch.gather(buf, -2, idx)
+            row_update_tokens(buf, torch.where(write, new[..., i:i + 1, :], old),
+                              off)
+    return cache
+
+
+def commit_window(cache: LayerKVCache, n_accept: torch.Tensor) -> LayerKVCache:
+    """Commit the accepted draft prefix of a verify window
+    (``append_window``), IN PLACE: ``n_resid += n_accept`` (int [B], zero
+    for free or fully rejected rows). The accepted bytes already sit at
+    their residual offsets and drafts never touched the compressed region
+    or the page ledger, so nothing else moves."""
+    cache.n_resid += n_accept.to(cache.n_resid.dtype)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Per-slot lifecycle (continuous batching)
 # ---------------------------------------------------------------------------

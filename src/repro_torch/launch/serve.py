@@ -14,7 +14,9 @@ chunked by default (``--prefill-chunk-pages 1``; 0 admits each prompt in
 one prefill). ``--prefix-cache`` (with ``--paged``) shares prompt pages
 across requests, at most ``--prefix-cache-pages`` of them pinned by the
 index; its demo traffic opens every prompt with the same two-page system
-prompt, so later admissions hit.
+prompt, so later admissions hit. ``--spec-decode`` verifies up to
+``--spec-k`` n-gram drafts a row in one pass; the outputs are those of
+plain decode (random prompts give few drafts and little acceptance).
 """
 from __future__ import annotations
 
@@ -56,6 +58,11 @@ def main(argv=None) -> int:
                     help="share indexed prompt pages across requests (needs --paged)")
     ap.add_argument("--prefix-cache-pages", type=int, default=None,
                     help="most pages the prefix index may pin")
+    ap.add_argument("--spec-decode", action="store_true",
+                    help="speculative decode: n-gram drafts verified in one "
+                    "pass; outputs equal plain decode's")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="most drafts a verify pass (window spec-k + 1)")
     args = ap.parse_args(argv)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -70,7 +77,8 @@ def main(argv=None) -> int:
                         pool_pages=args.pool_pages,
                         prefill_chunk_pages=args.prefill_chunk_pages,
                         prefix_cache=args.prefix_cache,
-                        prefix_cache_pages=args.prefix_cache_pages)
+                        prefix_cache_pages=args.prefix_cache_pages,
+                        spec_decode=args.spec_decode, spec_k=args.spec_k)
     t0 = time.time()
     engine = Engine(cfg, params, get_policy(args.policy), ecfg)
     print(f"engine built in {time.time() - t0:.1f}s; policy={args.policy}, "
@@ -114,6 +122,11 @@ def main(argv=None) -> int:
         print(f"prefix cache: {s.prefix_hits}/{s.prefix_lookups} hits "
               f"(rate {s.prefix_hit_rate:.2f}), {s.prefix_pages_shared} pages "
               f"shared by reference, {s.prefix_evictions} evictions")
+    if args.spec_decode:
+        print(f"speculative decode: {s.spec_launches} verify passes, "
+              f"{s.spec_accepted}/{s.spec_drafted} drafts accepted (rate "
+              f"{s.acceptance_rate:.2f}), {s.degraded_steps} degraded steps "
+              "(speculation off after the straggler watchdog)")
     where = "CUDA kernel" if engine.device.type == "cuda" else "plain version on CPU"
     print(f"fused kernel launches: {sum(k.launches for k in kernels)} ("
           + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)

@@ -6,15 +6,19 @@ only (the others arrive with their ports).
 ModelApi:
   init(gen, cfg) -> params
   prefill(params, cfg, pack_cfg, capacity, batch) -> (last_logits, cache)
-  decode_step(params, cfg, cache, token, backend=..., n_bucket=...)
+  decode_step(params, cfg, cache, token, backend=..., n_bucket=..., rows=...)
       -> (logits, cache)
   alloc_cache(cfg, pack_cfg, batch, capacity, device) -> cache
   prefill_into_slot(params, cfg, pack_cfg, capacity, cache, slot, batch)
       -> (last_logits [1, V], cache with row ``slot`` replaced)
   reset_slot(cache, slot) / mask_free(cache, active) -> cache
   decode_multi(params, cfg, cache, token, active, n_steps, eos_id,
-               t_max=..., backend=..., n_bucket=...)
+               t_max=..., backend=..., n_bucket=..., rows=...)
       -> (tokens [t_max, B], n_exec, cache)
+  decode_verify(params, cfg, cache, tokens, lens, active, backend=...,
+                n_bucket=...) -> (hat [B, w], n_accept [B], cache): one
+      speculative verify pass over a window of w = tokens.shape[1]
+      positions, accepted drafts committed (None: the family has none)
   prefill_chunk_init(cfg, pack_cfg, capacity, prompt_len=..., device=...)
       -> scratch
   prefill_chunk(params, cfg, pack_cfg, scratch, tokens, n_ctx=..., rows=...)
@@ -53,6 +57,7 @@ class ModelApi:
     reset_slot: Callable
     mask_free: Callable
     decode_multi: Callable
+    decode_verify: Callable | None
     prefill_chunk_init: Callable
     prefill_chunk: Callable
     prefill_chunk_insert: Callable
@@ -74,6 +79,7 @@ def _transformer_api() -> ModelApi:
         reset_slot=transformer.reset_cache_slot,
         mask_free=transformer.mask_free,
         decode_multi=transformer.decode_steps,
+        decode_verify=transformer.verify_steps,
         prefill_chunk_init=transformer.prefill_chunk_init,
         prefill_chunk=transformer.prefill_chunk,
         prefill_chunk_insert=transformer.prefill_chunk_insert,

@@ -11,6 +11,8 @@ reference donated it).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..configs.base import ArchConfig
@@ -19,6 +21,8 @@ from ..core.cache import (
     PackKVConfig,
     alloc_layer_cache,
     append_token,
+    append_window,
+    commit_window,
     flush_rows,
     insert_row,
     insert_row_paged,
@@ -112,10 +116,14 @@ def _qkv(p: dict, h: torch.Tensor, cfg: ArchConfig, positions):
                     qk_norm=cfg.qk_norm, use_rope=cfg.use_rope)
 
 
+def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Every position's logits: [B, S, D] -> f32 [B, S, V]."""
+    return (rmsnorm(h, params["final_ln"]) @ params["head"]).to(torch.float32)
+
+
 def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
     """Last position's logits: [B, S, D] -> f32 [B, V]."""
-    h = rmsnorm(h[:, -1:], params["final_ln"])
-    return (h @ params["head"])[:, 0].to(torch.float32)
+    return _logits(params, h[:, -1:])[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -412,60 +420,140 @@ def mask_free(cache: list[LayerKVCache], active):
     return cache
 
 
+def _attend(layer: LayerKVCache, q: torch.Tensor, sm_scale: float,
+            backend: str, n_bucket: int | None, ahead: int = 0) -> torch.Tensor:
+    """Decode attention of one query position q [B, H, hd] over ``layer``
+    with ``ahead`` more residual tokens than its counter holds (a verify
+    window's position ``ahead`` sees the drafts before it) -> f32
+    [B, H, hd]. One launch of K2 (dense), K5 (paged, fused) or the dense
+    attention of policy 'none'."""
+    n_resid = layer.n_resid + ahead if ahead else layer.n_resid
+    if layer.cfg.policy == "none":
+        read = slice_compressed(layer, n_bucket)
+        return dense_decode_attention(
+            q, read.raw_k, read.raw_v, read.resid_k, read.resid_v,
+            read.n_comp, n_resid, sm_scale)
+    if layer.pages is not None and backend == "fused":
+        # K5: tiles resolve their page in-kernel, no gathered copy
+        return paged_decode_attention(
+            q, dataclasses.replace(layer, n_resid=n_resid), sm_scale,
+            n_bucket=n_bucket, backend=backend)
+    # dense: a prefix view; paged + ref: the page-table gather
+    read = slice_compressed(layer, n_bucket)
+    return packed_decode_attention(
+        q, read.k, read.v, read.resid_k, read.resid_v, read.n_comp, n_resid,
+        sm_scale, backend=backend)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """[B, 1, ...] -> [B, rows, ...], zero rows after the first."""
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - 1)) if rows > 1 else x
+
+
 def decode_step(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
                 token: torch.Tensor, *, backend: str = "fused",
-                n_bucket: int | None = None):
+                n_bucket: int | None = None, rows: int = 1):
     """One decode token. token: int [B, 1]. Returns (logits f32 [B, V],
     cache updated IN PLACE).
 
     ``n_bucket``: attention reads only the first ``n_bucket`` tokens of the
     compressed region; it must upper-bound every row's ``n_comp`` after
     this step's append. None reads the full capacity.
+
+    ``rows``: the hidden state runs padded with zero rows to ``rows``
+    positions a batch row (only the first is appended and attends), so
+    every GEMM, norm and head product has the shape of a ``verify_steps``
+    pass over a window of ``rows``. Rows are independent, so this changes
+    no value of a product of a given shape; on the GPU cuBLAS sums a row of
+    a 4-row product in another order than one of a 20-row product, and
+    speculative decode equals plain decode bitwise only when both run the
+    same shapes.
     """
-    h = params["embed"][token.to(torch.int64)]
+    h = _pad_rows(params["embed"][token.to(torch.int64)], rows)
     B = h.shape[0]
     # per-row positions; counters are identical in every layer
     pos = cache[0].n_comp + cache[0].n_resid
     positions = pos[:, None, None]
     sm_scale = 1.0 / (cfg.hd ** 0.5)
-    rows = flush_rows(cache[0])  # one host read per step, not per layer
+    flush = flush_rows(cache[0])  # one host read per step, not per layer
     for i in range(cfg.n_layers):
         p = _layer(params, i)
         q, k, v = _qkv(p, h, cfg, positions)
-        qd = q[:, :, 0]
-        layer = append_token(cache[i], k, v, rows)
-        if layer.cfg.policy == "none":
-            read = slice_compressed(layer, n_bucket)
-            attn = dense_decode_attention(
-                qd, read.raw_k, read.raw_v, read.resid_k, read.resid_v,
-                read.n_comp, read.n_resid, sm_scale)
-        elif layer.pages is not None and backend == "fused":
-            # K5: tiles resolve their page in-kernel, no gathered copy
-            attn = paged_decode_attention(qd, layer, sm_scale,
-                                          n_bucket=n_bucket, backend=backend)
-        else:
-            # dense: a prefix view; paged + ref: the page-table gather
-            read = slice_compressed(layer, n_bucket)
-            attn = packed_decode_attention(
-                qd, read.k, read.v, read.resid_k, read.resid_v, read.n_comp,
-                read.n_resid, sm_scale, backend=backend)
-        attn = attn.reshape(B, 1, cfg.n_heads * cfg.hd)
+        layer = append_token(cache[i], k[:, :, :1], v[:, :, :1], flush)
+        attn = _attend(layer, q[:, :, 0], sm_scale, backend, n_bucket)
+        attn = _pad_rows(attn.reshape(B, 1, cfg.n_heads * cfg.hd), rows)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
         h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
-    return _head(params, h), cache
+    return _logits(params, h)[:, 0], cache
+
+
+def verify_steps(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
+                 tokens: torch.Tensor, lens: torch.Tensor, active, *,
+                 backend: str = "fused", n_bucket: int | None = None):
+    """Speculative verify: one forward over a window of w positions, the
+    acceptance and the commit on the device.
+
+    tokens: int [B, w], per row the seed (the token ``decode_step`` would
+    be fed) then w - 1 drafts, junk-padded; lens: int [B] in [1, w], seed
+    + drafts valid per row; active: bool [B], occupied rows (free rows
+    ride along and have their counters re-zeroed). Returns (hat int32
+    [B, w], n_accept int32 [B], cache committed IN PLACE): ``hat[b, i]``
+    is the greedy token ``decode_step`` would emit after position i, and
+    ``n_accept[b]`` the length of the draft prefix those tokens confirm
+    (draft i is accepted iff it equals ``hat[b, i - 1]``), so the emitted
+    ``hat[b, :n_accept + 1]`` is exact for any drafts.
+
+    Bitwise equal to ``decode_step(rows=w)`` run position by position: the
+    seed appends through ``append_token`` (flush and page pop included),
+    drafts land at the stepwise residual offsets (``append_window``),
+    RoPE positions are ``n_comp + n_resid + i`` read before the seed
+    append (a flush conserves the sum), and position i attends through
+    the same per-token kernel with ``n_resid + i``, the counter stepwise
+    step i sees after its own append. The attention is unrolled per
+    position, never batched over w: a batched reduction order moves an
+    accepted draft's output by an ulp, its K/V bytes in deeper layers, and
+    a later token. The GEMMs run over all ``B * w`` rows, the shape
+    ``decode_step(rows=w)`` gives its own."""
+    h = params["embed"][tokens.to(torch.int64)]
+    B, w = tokens.shape
+    pos = cache[0].n_comp + cache[0].n_resid  # pre-append totals
+    positions = pos[:, None, None] + torch.arange(w, device=h.device)
+    sm_scale = 1.0 / (cfg.hd ** 0.5)
+    lens = lens.to(torch.int32)
+    flush = flush_rows(cache[0])
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        q, k, v = _qkv(p, h, cfg, positions)
+        layer = append_window(cache[i], k, v, lens, flush)
+        attn = torch.stack([_attend(layer, q[:, :, j], sm_scale, backend,
+                                    n_bucket, ahead=j) for j in range(w)], dim=2)
+        attn = attn.transpose(1, 2).reshape(B, w, cfg.n_heads * cfg.hd)
+        h = h + attn.to(h.dtype) @ p["attn"]["wo"]
+        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+    hat = torch.argmax(_logits(params, h), -1).to(torch.int32)
+    # the leading run of drafts the window's argmaxes confirm, within each
+    # row's valid drafts (free rows have lens 1: their junk never commits)
+    offs = torch.arange(w - 1, device=h.device)
+    match = (hat[:, :-1] == tokens[:, 1:].to(torch.int32)) & \
+        (offs[None, :] < (lens - 1)[:, None])
+    n_accept = torch.cumprod(match.to(torch.int32), dim=1).sum(1).to(torch.int32)
+    for layer in cache:
+        commit_window(layer, n_accept)
+    mask_free(cache, active)
+    return hat, n_accept, cache
 
 
 def decode_steps(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
                  token: torch.Tensor, active, n_steps: int, eos_id: int, *,
                  t_max: int, backend: str = "fused",
-                 n_bucket: int | None = None):
+                 n_bucket: int | None = None, rows: int = 1):
     """Multi-step greedy decode: up to ``n_steps`` (<= ``t_max``) tokens.
 
     A Python loop over ``decode_step`` (the reference's in-graph while
-    loop) with EOS early exit once every active row has emitted
-    ``eos_id`` (-1 disables it). Free rows ride along and have their
-    counters re-zeroed after every step. Returns (tokens int32 [t_max, B]
-    — rows past the exit step are zeros, n_exec, cache).
+    loop; ``rows`` as there) with EOS early exit once every active row has
+    emitted ``eos_id`` (-1 disables it). Free rows ride along and have
+    their counters re-zeroed after every step. Returns (tokens int32
+    [t_max, B] — rows past the exit step are zeros, n_exec, cache).
     """
     B = token.shape[0]
     act = torch.as_tensor(active, dtype=torch.bool, device=token.device)
@@ -478,7 +566,7 @@ def decode_steps(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
         if (i == 0 or eos_id >= 0) and bool(done.all()):
             break
         logits, cache = decode_step(params, cfg, cache, tok, backend=backend,
-                                    n_bucket=n_bucket)
+                                    n_bucket=n_bucket, rows=rows)
         nxt = torch.argmax(logits, -1).to(torch.int32)
         out[i] = nxt
         done = done | (nxt == eos_id)

@@ -34,7 +34,17 @@ maps them into its slot by reference, reserves and computes only its
 suffix, and gives the same bytes and tokens as a cold admission. Cold
 index pages are evicted (LRU leaves) before admission would block.
 
-Speculative decode, preemption, sessions and meshes are not ported yet
+SPECULATIVE engines (``EngineConfig.spec_decode``) draft up to
+``spec_k`` tokens a row from the row's own sequence (``NGramDrafter``) and
+verify them in one pass over a window of ``spec_k + 1`` positions
+(``models.transformer.verify_steps``); the accepted prefix plus the
+model's next token are emitted, so outputs equal plain decode's bit for
+bit. Every engine, speculative or not, runs its decode GEMMs at the
+window's height (``decode_step``'s ``rows``): on the GPU a product's row
+sums in another order at another row count, so the two paths must issue
+the same shapes.
+
+Preemption, sessions, fault plans and meshes are not ported yet
 (ROADMAP.md); where the reference consults them, this engine takes the
 branch the reference takes when they are off.
 """
@@ -55,6 +65,7 @@ from ..core.cache import (
     calibrate_specs,
     release_pages,
 )
+from ..distributed.fault import StragglerMonitor
 from ..models import get_model
 from ..utils import cdiv
 
@@ -72,6 +83,12 @@ class EngineConfig:
     prefill_chunk_pages: int = 1  # admission chunk budget in pages of
     #   ``page_size`` tokens per scheduler step (dense engines use the same
     #   token unit); 0 = monolithic prefill-insert
+    # speculative decode:
+    spec_decode: bool = False  # n-gram drafts verified in one pass a launch
+    spec_k: int = 4  # most drafts a verify pass (window spec_k + 1); every
+    #   engine's decode GEMMs run at the window's height, spec on or off
+    spec_backoff: int = 32  # most scheduler steps a slot waits to draft
+    #   again after fully rejected passes (doubling 1, 2, ...; 0 = never)
     paged: bool = False  # page-pool storage + page-reservation admission
     page_size: int = 256  # tokens per page (power of two, >= block)
     pool_pages: int | None = None  # pages in the pool; None = max_batch *
@@ -110,6 +127,14 @@ class Engine:
                     "--prefix-cache does not support sliding-window attention "
                     f"(window={cfg.window}): evicted window tokens break "
                     "page-aligned prefix identity")
+        if ecfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {ecfg.spec_k}")
+        if ecfg.spec_decode:
+            if self.api.decode_verify is None:
+                raise ValueError(f"family {cfg.family!r} cannot serve "
+                                 "--spec-decode: it has no verify pass")
+            if ecfg.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {ecfg.spec_k}")
         if ecfg.paged:
             if not self.api.supports_paged:
                 raise ValueError(f"family {cfg.family!r} cannot serve paged: "
@@ -157,10 +182,16 @@ class Engine:
                                 self.ecfg.capacity,
                                 {"tokens": self._tokens(batch["tokens"])})
 
+    @property
+    def rows(self) -> int:
+        """Positions a batch row of every decode GEMM: the verify window."""
+        return self.ecfg.spec_k + 1
+
     def decode(self, cache, token, n_bucket: int | None = None):
         return self.api.decode_step(self.params, self.cfg, cache,
                                     self._tokens(token),
-                                    backend=self.ecfg.backend, n_bucket=n_bucket)
+                                    backend=self.ecfg.backend, n_bucket=n_bucket,
+                                    rows=self.rows)
 
     def decode_chunk(self, cache, token, active, n_steps: int,
                      eos_id: int | None, n_bucket: int | None = None):
@@ -172,8 +203,23 @@ class Engine:
             torch.as_tensor(np.asarray(active, bool), device=self.device),
             n_steps, -1 if eos_id is None else eos_id,
             t_max=self.ecfg.decode_chunk, backend=self.ecfg.backend,
-            n_bucket=n_bucket)
+            n_bucket=n_bucket, rows=self.rows)
         return toks.cpu().numpy(), n_exec, cache
+
+    def decode_verify(self, cache, tokens, lens, active,
+                      n_bucket: int | None = None):
+        """One speculative verify pass (``models.transformer.verify_steps``).
+        tokens: [B, w] seed + drafts, junk-padded; lens: [B] valid window
+        lengths; active: bool [B] occupied rows. The cache comes back with
+        the accepted prefixes committed and free rows re-zeroed. Returns
+        (hat np [B, w], n_accept np [B], cache): one host read."""
+        hat, n_accept, cache = self.api.decode_verify(
+            self.params, self.cfg, cache, self._tokens(tokens),
+            self._tokens(lens),
+            torch.as_tensor(np.asarray(active, bool), device=self.device),
+            backend=self.ecfg.backend, n_bucket=n_bucket)
+        both = torch.cat([hat, n_accept[:, None]], dim=1).cpu().numpy()
+        return both[:, :-1], both[:, -1], cache
 
     def bucket_for(self, n_max: int) -> int | None:
         """Launch bucket covering ``n_max`` compressed tokens (None = full).
@@ -347,6 +393,18 @@ class SlotStats:
     prefix_hits: int = 0  # admissions that matched at least one full page
     prefix_pages_shared: int = 0  # pages mapped by reference (cumulative)
     prefix_evictions: int = 0  # index entries dropped (pressure or cap)
+    # speculative decode (zeros when it is off); ``decode_steps`` then
+    # counts model passes, verify passes included, and ``tokens_out``
+    # stays the token count:
+    spec_launches: int = 0  # verify passes (window spec_k + 1)
+    spec_drafted: int = 0  # drafts submitted for verification
+    spec_accepted: int = 0  # drafts accepted (emitted without a pass of their own)
+    degraded_steps: int = 0  # launches run plain after the watchdog turned
+    #   speculation off
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -457,6 +515,49 @@ class PrefixIndex:
         return best.page
 
 
+class NGramDrafter:
+    """Host-side per-slot suffix n-gram drafter (self-speculation, "prompt
+    lookup").
+
+    No draft model: per slot it keeps prompt + emitted tokens and proposes
+    what followed the most recent earlier occurrence of the sequence's
+    current suffix n-gram. Draft quality moves only the acceptance rate;
+    the verify pass keeps outputs exact for any drafts, so a drafter can be
+    swapped (``SlotServer(drafter=...)``)."""
+
+    def __init__(self, max_ngram: int = 3):
+        self.max_ngram = max_ngram
+        self._seq: dict[int, list[int]] = {}
+
+    def seed(self, slot: int, tokens) -> None:
+        """Start tracking ``slot``: prompt + first generated token."""
+        self._seq[slot] = [int(t) for t in tokens]
+
+    def extend(self, slot: int, tokens) -> None:
+        """Append the tokens a launch just emitted for ``slot``."""
+        self._seq[slot].extend(int(t) for t in tokens)
+
+    def drop(self, slot: int) -> None:
+        self._seq.pop(slot, None)
+
+    def draft(self, slot: int, k: int) -> list[int]:
+        """Up to ``k`` proposed continuations of ``slot``'s sequence: for n
+        = max_ngram..1, what followed the most recent prior occurrence of
+        the last n tokens. Empty when nothing matches (the scheduler then
+        runs a plain launch)."""
+        seq = self._seq.get(slot)
+        if not seq or k <= 0:
+            return []
+        L = len(seq)
+        for n in range(min(self.max_ngram, L - 1), 0, -1):
+            key = seq[L - n:]
+            for s in range(L - n - 1, -1, -1):
+                if seq[s:s + n] == key:
+                    # s + n <= L - 1, so the continuation is never empty
+                    return seq[s + n:s + n + k]
+        return []
+
+
 class _Active:
     """One occupied slot: the request plus its generation state."""
 
@@ -529,14 +630,31 @@ class SlotServer:
     reserves only its suffix pages) and every full page of the admitted
     prompt is registered. Under page pressure, cold index prefixes (LRU
     leaves mapped into no live slot) are evicted before admission blocks.
+
+    SPECULATIVE engines replace the decode launch with a verify pass when
+    some row has a draft (``drafter``, default ``NGramDrafter``): each
+    row's drafts are capped by its residual headroom after the seed
+    append and by its remaining tokens; a slot whose drafts all die waits
+    a doubling number of steps before drafting again
+    (``EngineConfig.spec_backoff``). ``straggler`` (default
+    ``StragglerMonitor()``) watches each decode launch's wall time; its
+    'exclude' verdict turns speculation off for the rest of the run.
     """
 
-    def __init__(self, engine: Engine, eos_id: int | None = None):
+    def __init__(self, engine: Engine, eos_id: int | None = None,
+                 drafter: NGramDrafter | None = None,
+                 straggler: StragglerMonitor | None = None):
         if engine.cfg.input_mode != "tokens":
             raise ValueError(f"input_mode {engine.cfg.input_mode!r} is not "
                              "servable per slot")
         self.engine = engine
         self.eos_id = eos_id
+        spec = engine.ecfg.spec_decode
+        self._drafter = (drafter or NGramDrafter()) if spec else None
+        self._watchdog = (straggler or StragglerMonitor()) if spec else None
+        self._spec_degraded = False  # set once the watchdog says exclude
+        self._spec_backoff = [0] * engine.ecfg.max_batch
+        self._spec_cooldown = [0] * engine.ecfg.max_batch
         self.n_slots = engine.ecfg.max_batch
         self.cache = None  # allocated on first admission
         self.slots: list[_Active | None] = [None] * self.n_slots
@@ -727,6 +845,8 @@ class SlotServer:
         """Free slot ``i``: the device row (paged: its pages) and its
         page reservation."""
         self.slots[i] = None
+        if self._drafter is not None:
+            self._drafter.drop(i)
         self.cache = self.engine.free_slot(self.cache, i)
         self._reserved.pop(i, None)
         self._slot_shared.pop(i, None)  # its shared pages' refs went with it
@@ -795,6 +915,10 @@ class SlotServer:
         req.status = "active"
         self.slots[i] = _Active(req, tok, self.eos_id)
         self._last_tok[i] = tok
+        self._spec_backoff[i] = self._spec_cooldown[i] = 0
+        if self._drafter is not None:
+            # prompt + the first token (the next launch's seed)
+            self._drafter.seed(i, list(np.asarray(req.tokens)) + [tok])
         self.stats.admitted += 1
         self.stats.tokens_out += 1
         if self._ever_used[i]:
@@ -890,14 +1014,34 @@ class SlotServer:
             finished.extend(self._admit())
         if self.n_occupied:
             t_dec = time.perf_counter()
-            n_steps, n_bucket = self._chunk_plan()
-            if self.engine.ecfg.decode_chunk > 1:
-                self._decode_chunk(n_steps, n_bucket, finished)
+            if self.engine.ecfg.spec_decode and not self._spec_degraded:
+                self._decode_spec(finished)
             else:
-                self._decode_single(n_bucket, finished)
-            self.stats.decode_s += time.perf_counter() - t_dec
+                if self.engine.ecfg.spec_decode:
+                    self.stats.degraded_steps += 1
+                self._decode_plain(finished)
+            dt = time.perf_counter() - t_dec
+            self.stats.decode_s += dt
+            self._observe_launch(dt)
         self.stats.wall_s += time.perf_counter() - t0
         return finished
+
+    def _observe_launch(self, dt: float) -> None:
+        """Feed one decode launch's wall time to the straggler watchdog; an
+        'exclude' verdict turns speculation off for good (outputs do not
+        change: speculation moves only the speed)."""
+        if self._watchdog is None or self._spec_degraded:
+            return
+        if self._watchdog.observe(dt) == "exclude":
+            self._spec_degraded = True
+
+    def _decode_plain(self, finished: list[Request]) -> None:
+        """The plain launch: a multi-step chunk or a single step."""
+        n_steps, n_bucket = self._chunk_plan()
+        if self.engine.ecfg.decode_chunk > 1:
+            self._decode_chunk(n_steps, n_bucket, finished)
+        else:
+            self._decode_single(n_bucket, finished)
 
     def _emit(self, i: int, t: int) -> bool:
         """Record token ``t`` for slot ``i``; True once the row is done."""
@@ -905,6 +1049,8 @@ class SlotServer:
         act.out.append(t)
         self._last_tok[i] = t
         self.stats.tokens_out += 1
+        if self._drafter is not None:
+            self._drafter.extend(i, (t,))
         act.done = (self.eos_id is not None and t == self.eos_id) or \
             len(act.out) >= act.req.max_new
         return act.done
@@ -946,6 +1092,96 @@ class SlotServer:
                 if self._emit(i, int(toks[s, i])):
                     break
             if act.done:
+                finished.append(self._retire_slot(i))
+
+    # -- speculative decode --------------------------------------------------
+    def _post_seed(self, act: _Active) -> tuple[int, int]:
+        """The row's (n_comp, n_resid) after the next seed append, from the
+        host mirror: the seed flushes a block when the residual is full (a
+        paged row at capacity does not)."""
+        pack, ecfg = self.engine.pack_cfg, self.engine.ecfg
+        c, r = self._counters(act)
+        if r >= pack.residual and (not ecfg.paged
+                                   or c + pack.block <= ecfg.capacity):
+            c, r = c + pack.block, r - pack.block
+        return c, r + 1
+
+    def _plan_spec(self):
+        """Per-row drafts of one verify pass: (tokens [B, w], lens [B]),
+        or None when no row has a draft (a verify window would be pure
+        overhead; the caller runs a plain launch instead).
+
+        The window is always ``spec_k + 1`` wide; shorter drafts ride
+        through ``lens``. A row's drafts are capped by its residual
+        headroom after the seed append (a window never crosses a flush or
+        a page pop, ``core.cache.append_window``) and by ``remaining - 1``
+        (emission never overshoots ``max_new``). A row in backoff sits the
+        pass out, seed only, and its cooldown ticks down."""
+        ecfg = self.engine.ecfg
+        w = ecfg.spec_k + 1
+        toks = np.zeros((self.n_slots, w), np.int32)
+        lens = np.ones((self.n_slots,), np.int32)
+        any_draft = False
+        for i, act in enumerate(self.slots):
+            if act is None:
+                continue
+            toks[i, 0] = self._last_tok[i]
+            if self._spec_cooldown[i] > 0:
+                self._spec_cooldown[i] -= 1
+                continue
+            _, r = self._post_seed(act)
+            kb = min(ecfg.spec_k, self.engine.pack_cfg.residual - r,
+                     act.remaining - 1)
+            if kb <= 0:
+                continue
+            d = self._drafter.draft(i, kb)
+            if not d:
+                continue
+            toks[i, 1:1 + len(d)] = d
+            lens[i] = 1 + len(d)
+            any_draft = True
+        return (toks, lens) if any_draft else None
+
+    def _decode_spec(self, finished: list[Request]) -> None:
+        """Speculative launch: every row's drafts verified by one pass; the
+        accepted prefix commits by a counter advance and rejected drafts
+        die past ``n_resid``. A row emits its accepted drafts and the
+        model's own next token, each what plain decode would emit."""
+        plan = self._plan_spec()
+        if plan is None:
+            self._decode_plain(finished)
+            return
+        toks, lens = plan
+        # a window never flushes after its seed, so the post-seed n_comp
+        # is exact on the host and bounds the pass's bucket tightly
+        n_comp = max(self._post_seed(a)[0] for a in self.slots if a is not None)
+        n_bucket = self.engine.bucket_for(max(1, n_comp))
+        active = [s is not None for s in self.slots]
+        hat, n_accept, self.cache = self.engine.decode_verify(
+            self.cache, toks, lens, active, n_bucket)
+        ecfg = self.engine.ecfg
+        self.stats.decode_steps += 1
+        self.stats.chunk_launches += 1
+        self.stats.spec_launches += 1
+        for i, act in enumerate(self.slots):
+            if act is None:
+                continue
+            self.stats.occupied_slot_steps += 1
+            m, kb = int(n_accept[i]), int(lens[i]) - 1
+            self.stats.spec_drafted += kb
+            self.stats.spec_accepted += m
+            if kb > 0 and ecfg.spec_backoff > 0:
+                if m == 0:  # every draft died: a doubling cooldown
+                    self._spec_backoff[i] = min(max(1, 2 * self._spec_backoff[i]),
+                                                ecfg.spec_backoff)
+                    self._spec_cooldown[i] = self._spec_backoff[i]
+                else:
+                    self._spec_backoff[i] = 0
+            for j in range(m + 1):
+                if self._emit(i, int(hat[i, j])):
+                    break  # tokens past EOS or max_new are junk
+        for i, act in enumerate(self.slots):
+            if act is not None and act.done:
                 finished.append(self._retire_slot(i))
 
     def run(self) -> list[Request]:

@@ -558,3 +558,179 @@ def test_prefix_hit_bit_identical_to_cold_on_cuda(cuda):
     for r in reqs():
         np.testing.assert_array_equal(warm.done[r.rid].output,
                                       serve([r]).done[r.rid].output)
+
+
+# ---------------------------------------------------------------------------
+# speculative decode: the GEMMs' rows, verify == stepwise, spec == plain
+# ---------------------------------------------------------------------------
+
+# llama2-7b's decode products (K, N): wq / wk / wv / wo, w_gate / w_up,
+# w_down, head
+LLAMA2_GEMMS = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 5])
+@pytest.mark.parametrize("K,N", LLAMA2_GEMMS)
+def test_gemm_rows_at_llama2_widths(cuda, K, N, w):
+    """bf16 X @ W at B = 4 batch rows. Printed (run with -s): whether row
+    b of the verify pass's [B*w, K] product equals row b of a plain [B, K]
+    product bitwise, case (a) of the design. Asserted, case (b), the one
+    the port takes: at the [B*w, K] shape every row of the product depends
+    only on its own input row, so a decode step padded to w rows
+    (``decode_step(rows=w)``) gives each window position's row bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(K + N + w)
+    B = 4
+    W = (torch.randn(K, N, generator=gen, device=cuda) / K ** 0.5).to(torch.bfloat16)
+    X = torch.randn(B, w, K, generator=gen, device=cuda).to(torch.bfloat16)
+    full = X @ W
+    rows_equal = torch.equal(full[:, 0], X[:, :1] @ W)
+    print(f"GEMM rows K={K} N={N} B={B} w={w}: (a) [B*w] row == [B] row: {rows_equal}",
+          flush=True)
+    for j in range(w):
+        padded = torch.nn.functional.pad(X[:, j:j + 1], (0, 0, 0, w - 1)) @ W
+        assert torch.equal(padded[:, 0], full[:, j]), j
+
+
+def _smoke_model(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+
+    cfg = get_arch("llama2-7b", smoke=True)
+    return cfg, get_model(cfg), get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 5])
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_matches_stepwise_on_cuda(cuda, paged, w):
+    """tests/test_torch_spec.py's verify == stepwise on the card: ragged
+    rows (191 / 131 / 156 tokens, 33 warm steps, so row 0's seed append
+    flushes), a window where row 0 accepts every draft, row 1 none and row
+    2 one; hat and every live byte of the committed cache bitwise equal to
+    decode_step(rows=w) fed the same tokens, through K2 (dense) or K5
+    (paged), launched once per layer and window position."""
+    import copy
+
+    cfg, api, params = _smoke_model(cuda)
+    B, CAP, R = 3, 256, 96
+    pack = tc.PackKVConfig(residual=R, paged=paged, page_size=128)
+    rng = np.random.default_rng(0)
+    cache = api.alloc_cache(cfg, pack, B, CAP, cuda)
+    last = torch.zeros((B, 1), dtype=torch.int32, device=cuda)
+    for i, plen in enumerate((191, 131, 156)):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, plen)), device=cuda)
+        lg, cache = api.prefill_into_slot(params, cfg, pack, CAP, cache, i, {"tokens": toks})
+        last[i, 0] = lg[0].argmax()
+    step = lambda c, t: api.decode_step(params, cfg, c, t, rows=w)
+    for _ in range(33):
+        lg, cache = step(cache, last)
+        last = lg.argmax(-1).to(torch.int32)[:, None]
+    assert int(cache[0].n_resid[0]) == R
+    c, t, chain = copy.deepcopy(cache), last, []
+    for _ in range(w):
+        lg, c = step(c, t)
+        t = lg.argmax(-1).to(torch.int32)[:, None]
+        chain.append(t[:, 0])
+    toks = torch.zeros((B, w), dtype=torch.int32, device=cuda)
+    toks[:, 0] = last[:, 0]
+    for j in range(w - 1):
+        toks[0, 1 + j] = chain[j][0]
+        toks[1, 1 + j] = (chain[j][1] + 1) % cfg.vocab
+        toks[2, 1 + j] = chain[j][2] if j == 0 else (chain[j][2] + 1) % cfg.vocab
+    lens = torch.tensor([w, 2, min(4, w) if w > 2 else 1], dtype=torch.int32, device=cuda)
+    hat_ref, snaps, c = [], [], copy.deepcopy(cache)
+    for j in range(w):
+        lg, c = step(c, toks[:, j:j + 1])
+        hat_ref.append(lg.argmax(-1).to(torch.int32))
+        snaps.append(copy.deepcopy(c))
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    hat, n_accept, got = api.decode_verify(params, cfg, cache, toks, lens,
+                                           torch.ones(B, dtype=torch.bool, device=cuda))
+    launched = fused_packed_attention_paged.launches if paged else fused_packed_attention.launches
+    assert launched == cfg.n_layers * w
+    assert n_accept.tolist() == [w - 1, 0, 1 if w > 2 else 0]
+    hat_ref = torch.stack(hat_ref, 1)
+    for i in range(B):
+        n = int(lens[i])
+        assert torch.equal(hat[i, :n], hat_ref[i, :n]), i
+        want = snaps[int(n_accept[i])]
+        for g, s in zip(got, want):
+            assert int(g.n_comp[i]) == int(s.n_comp[i])
+            assert int(g.n_resid[i]) == int(s.n_resid[i])
+            r = int(g.n_resid[i])
+            assert torch.equal(g.resid_k[i, :, :r], s.resid_k[i, :, :r])
+            assert torch.equal(g.resid_v[i, :, :r], s.resid_v[i, :, :r])
+            for tg, ts in zip((g.k, g.v), (s.k, s.v)):
+                for a, b in ((tg.scale, ts.scale), (tg.zero, ts.zero),
+                             (tg.chan_perm, ts.chan_perm)):
+                    assert torch.equal(a, b) if paged else torch.equal(a[i], b[i])
+                for ta, tb in zip(tg.tiers, ts.tiers):
+                    for a, b in ((ta.payload, tb.payload), (ta.mins, tb.mins),
+                                 (ta.shifts, tb.shifts)):
+                        assert torch.equal(a, b) if paged else torch.equal(a[i], b[i])
+            if paged:
+                for key in ("page_table", "free", "n_free", "ref"):
+                    assert torch.equal(getattr(g.pages, key), getattr(s.pages, key)), key
+
+
+class _Replay:
+    """Proposes a plain run's outputs with every third proposal wrong."""
+
+    def __init__(self, outputs: dict, vocab: int):
+        self.outputs, self.vocab, self.pos = outputs, vocab, {}
+
+    def seed(self, slot, tokens):
+        self.pos[slot] = [self.outputs[tuple(int(t) for t in tokens)[:-1]], 1]
+
+    def extend(self, slot, tokens):
+        self.pos[slot][1] += len(tuple(tokens))
+
+    def drop(self, slot):
+        self.pos.pop(slot, None)
+
+    def draft(self, slot, k):
+        stream, cur = self.pos[slot]
+        return [(int(t) + 1) % self.vocab if (cur + j) % 3 == 0 else int(t)
+                for j, t in enumerate(stream[cur:cur + k])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_serving_equals_plain_on_cuda(cuda, paged):
+    """Speculative serving at the smoke config on the card, the replay
+    drafter: every request's tokens bitwise equal to a plain server's, K2
+    (dense) or K5 (paged) launched n_layers x (plain steps + w x verify
+    passes) times and the other kernel never."""
+    import dataclasses
+
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    cfg, _, params = _smoke_model(cuda)
+    ecfg = EngineConfig(capacity=512, max_batch=2, calib_tokens=128, decode_chunk=4,
+                        bucket_unit=64, paged=paged, page_size=128, spec_k=3,
+                        spec_backoff=0, debug_invariants=paged)
+    plain = Engine(cfg, params, tc.PackKVConfig(), ecfg)
+    spec = Engine(cfg, params, plain.pack_cfg,
+                  dataclasses.replace(ecfg, calibrate=False, spec_decode=True))
+    r = np.random.default_rng(5)
+    prompts = [r.integers(0, cfg.vocab, n) for n in (198, 168, 228)]
+
+    def serve(eng, **kw):
+        srv = SlotServer(eng, **kw)
+        for i, (p, m) in enumerate(zip(prompts, (10, 8, 12))):
+            srv.submit(Request(rid=i, tokens=p, max_new=m))
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        srv.run()
+        return srv, fused_packed_attention.launches, fused_packed_attention_paged.launches
+
+    a, _, _ = serve(plain)
+    outs = {tuple(int(t) for t in p): a.done[i].output for i, p in enumerate(prompts)}
+    b, k2, k5 = serve(spec, drafter=_Replay(outs, cfg.vocab))
+    s = b.stats
+    assert s.spec_launches > 0 and 0 < s.spec_accepted < s.spec_drafted
+    want = cfg.n_layers * (s.decode_steps - s.spec_launches + 4 * s.spec_launches)
+    assert (k5, k2) == (want, 0) if paged else (k2, k5) == (want, 0)
+    for i in a.done:
+        np.testing.assert_array_equal(a.done[i].output, b.done[i].output)
