@@ -114,10 +114,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      request on a fresh server over the same engine. Reports decode tok/s,
      wall time, peak device memory and compressed bytes per token.
 
+  10. serve_preempt (after spec_rows, on the llama2-7b weights and
+     calibrated specs, chunked admission of one page a step) - four class-1
+     requests (prompts 320/700/1000/450, 128 new tokens), then, once all
+     four decode, two class-0 requests (260 and 900, 16 new tokens) that
+     must swap class-1 rows out to host memory: dense; paged with the
+     prefix cache (the class-1 prompts open with one 512-token system
+     prompt); paged at 5 slots on a pool one page short of a class-0
+     arrival. Every request bitwise equal to the same run with preemption
+     off, >= 2 preemptions (>= 1 under page pressure), swapped == restored
+     pages, pools clean after the run, K2/K5 once a layer and decode step.
+     Reports each swapped row's bytes, the swap store's peak, evacuate /
+     host copy / restore ms (CUDA events), decode tok/s beside the
+     control's.
+  11. serve_session - two conversations (prompts 700 and 1000, 32 new
+     tokens a turn, a 16-token extension a returning turn; the second takes
+     three turns), dense and paged, the host tier sized at 1.5x the first
+     parked row so a park spills to disk and loads back: every turn
+     bitwise equal to the hand-driven chain on a session-off engine (the
+     same max_batch and spec_k), 3 hits with no prefill chunk, spills and
+     loads >= 1. Reports parked bytes, save_mini / load_mini / restore ms,
+     and the returning 748-token turn's time to first token beside a cold
+     admission of the same prompt on a fresh server.
+  12. serve_faults - the paged prefix engine with sessions and preemption,
+     8 requests, a FaultPlan of 12 events of every kind over 34 steps: the
+     run drains, references conserved after every admit and retire, no
+     page leaked, every request no fault touched bitwise equal to a
+     fault-free control.
+
 Then the kernels line (K2's launches summed over the dense serve phases,
-serve_spec's dense runs included, K5's over the paged, paged speculative
-and prefix ones) and, last, {"ok": true, "device":
-{...}}.
+serve_spec's, serve_preempt's and serve_session's dense runs included,
+K5's over the paged, paged speculative, prefix, and paged preempt,
+session and fault ones) and, last, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -912,6 +940,434 @@ def phase_spec_rows(engine, cfg) -> None:
           "steady_median_ms": {k: statistics.median(v) for k, v in steady.items()}})
 
 
+# serve_preempt / serve_session / serve_faults: llama2-7b at full width and
+# depth on the serve phases' weights and calibrated specs, chunked
+# admission of one page a step
+PREEMPT_LOW = (320, 700, 1000, 450)  # class 1
+PREEMPT_HIGH = (260, 900)  # class 0, arriving once every class-1 row decodes
+PREEMPT_LOW_NEW, PREEMPT_HIGH_NEW = 128, 16
+PREEMPT_SYS = 512  # the paged prefix run's shared system prompt
+
+
+def slot_engine(engine, cfg, **ekw):
+    """An engine over ``engine``'s weights and calibrated specs (no second
+    calibration): capacity 2048, 4 slots, decode_chunk 8, backend fused,
+    chunked admission of one page a step."""
+    from repro_torch.serving import Engine, EngineConfig
+
+    kw = dict(capacity=2048, max_batch=4, decode_chunk=8, backend="fused",
+              device=engine.ecfg.device, calibrate=False, prefill_chunk_pages=1)
+    return Engine(cfg, engine.params, engine.pack_cfg, EngineConfig(**{**kw, **ekw}))
+
+
+def device_timed(obj, name: str, log: list, size=None) -> None:
+    """Wrap ``obj.name`` so each call appends (ms between CUDA events
+    recorded around it, synchronized, so its host copies are included;
+    with ``size``, ``size(args)`` bytes)."""
+    import torch
+
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kw)
+        b.record()
+        b.synchronize()
+        log.append((a.elapsed_time(b), size(args) if size else None))
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def host_timed(obj, name: str, log: list) -> None:
+    """Wrap ``obj.name`` so each call appends its wall ms (host-only work:
+    the disk serializers)."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log.append(((time.perf_counter() - t0) * 1e3, None))
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def mini_bytes(mini) -> int:
+    from repro_torch.utils import leaf_nbytes, tree_flatten
+
+    return sum(leaf_nbytes(x) for x in tree_flatten(mini)[0])
+
+
+def served(server, launch_mode: str, cfg, drive=None) -> int:
+    """Drain ``server`` (``drive()``, default ``server.run()``), counting
+    launches from 0: K2 (dense) or K5 (paged) must have launched once a
+    layer and decode step, the other never. Returns the launches."""
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    steps0 = server.stats.decode_steps
+    (drive or server.run)()
+    torch.cuda.synchronize()
+    k2, k5 = fused_packed_attention.launches, fused_packed_attention_paged.launches
+    used, unused = (k2, k5) if launch_mode == "dense" else (k5, k2)
+    want = cfg.n_layers * (server.stats.decode_steps - steps0)
+    check(used == want and unused == 0,
+          f"{launch_mode}: attention launches {used} (other {unused}) != {want}")
+    return used
+
+
+def pool_clean(server, what: str) -> None:
+    """After a drained run: every layer's pool free but the index's pages,
+    references conserved (free <=> ref == 0)."""
+    held = server._index.n_held if server._index is not None else 0
+    for layer in server.cache:
+        ref = layer.pages.ref.cpu().numpy()
+        nf = int(layer.pages.n_free)
+        check(nf == len(ref) - held and int((ref == 0).sum()) == nf
+              and int((ref > 0).sum()) == held,
+              f"{what}: {len(ref) - nf} pages held, the index holds {held}")
+
+
+def phase_serve_preempt(engine, cfg) -> dict:
+    """Preemption on the full-width model: four class-1 requests, then,
+    once all four decode, two class-0 arrivals that must each swap a
+    victim out (dense; paged with the prefix cache, the class-1 prompts
+    opening with one 512-token system prompt; paged with 5 slots and a
+    pool one page short of a class-0 arrival). Every request bitwise equal
+    to its control (the same config, preemption off), K2/K5 counted,
+    pools clean after the run."""
+    import numpy as np
+
+    from repro_torch.serving import Request, SlotServer
+
+    rng = np.random.default_rng(6)
+    sys_prompt = rng.integers(0, cfg.vocab, PREEMPT_SYS)
+    lows = [rng.integers(0, cfg.vocab, n) for n in PREEMPT_LOW]
+    highs = [rng.integers(0, cfg.vocab, n) for n in PREEMPT_HIGH]
+    pressure_pool = 1 + sum(-(-(n + PREEMPT_LOW_NEW) // 256) for n in PREEMPT_LOW)
+    runs = [("dense", dict()),
+            ("prefix", dict(paged=True, page_size=256, prefix_cache=True,
+                            debug_invariants=True)),
+            ("pressure", dict(paged=True, page_size=256, max_batch=5,
+                              pool_pages=pressure_pool, debug_invariants=True))]
+    total = {"dense": 0, "paged": 0}
+    for name, ekw in runs:
+        mode = "dense" if name == "dense" else "paged"
+        prefix = sys_prompt if name == "prefix" else np.zeros(0, np.int64)
+
+        def drive(server):
+            def steps():
+                for i, p in enumerate(lows):
+                    server.submit(Request(rid=i, max_new=PREEMPT_LOW_NEW, priority=1,
+                                          tokens=np.concatenate([prefix, p])))
+                while server.n_occupied < len(lows):
+                    server.step()
+                for j, p in enumerate(highs):
+                    server.submit(Request(rid=len(lows) + j, max_new=PREEMPT_HIGH_NEW,
+                                          priority=0, tokens=p))
+                server.run()
+
+            return served(server, mode, cfg, steps)
+
+        pre = slot_engine(engine, cfg, preempt=True, **ekw)
+        server = SlotServer(pre)
+        evac, swap, restore = [], [], []
+        device_timed(pre, "evacuate", evac)
+        device_timed(server._swap, "put", swap, lambda a: mini_bytes(a[1]))
+        device_timed(pre, "restore", restore)
+        reserved = []
+        if name == "pressure":
+            fit = server._fit_pages
+
+            def fit_and_record(head, need_new, protected):
+                reserved.append({"step": server._step_no, "rid": head.rid,
+                                 "need_new": need_new, "available": server._pages_avail,
+                                 "reserved": dict(server._reserved)})
+                return fit(head, need_new, protected)
+
+            server._fit_pages = fit_and_record
+        t0 = time.perf_counter()
+        total[mode] += drive(server)
+        wall = time.perf_counter() - t0
+        s = server.stats
+        ctl_engine = slot_engine(engine, cfg, **ekw)
+        control = SlotServer(ctl_engine)
+        t0 = time.perf_counter()
+        total[mode] += drive(control)
+        ctl_wall = time.perf_counter() - t0
+        tag = f"serve_preempt {name}"
+        check(len(server.done) == len(lows) + len(highs) == len(control.done),
+              f"{tag}: not every request finished")
+        for rid, r in server.done.items():
+            check(np.array_equal(r.output, control.done[rid].output),
+                  f"{tag}: request {rid} differs from its uninterrupted control")
+        check(s.preemptions >= (1 if name == "pressure" else 2),
+              f"{tag}: {s.preemptions} preemptions")
+        check(sum(r.n_preempts for r in server.done.values()) == s.preemptions,
+              f"{tag}: n_preempts do not add up to {s.preemptions}")
+        check(control.stats.preemptions == 0, f"{tag}: the control preempted")
+        if mode == "paged":
+            check(s.swapped_pages == s.restored_pages,
+                  f"{tag}: {s.swapped_pages} pages out, {s.restored_pages} back")
+            pool_clean(server, tag)
+            pool_clean(control, tag + " control")
+        check(len(server._swap) == 0, f"{tag}: the swap store did not drain")
+        row = {"phase": "serve_preempt", "run": name, "max_batch": pre.ecfg.max_batch,
+               "low_prompts": [len(prefix) + n for n in PREEMPT_LOW],
+               "high_prompts": list(PREEMPT_HIGH), "low_new": PREEMPT_LOW_NEW,
+               "high_new": PREEMPT_HIGH_NEW, "preemptions": s.preemptions,
+               "swapped_pages": s.swapped_pages, "restored_pages": s.restored_pages,
+               "prefix_hits": s.prefix_hits,
+               "n_preempts": {rid: r.n_preempts for rid, r in server.done.items()},
+               "swapped_row_bytes": [b for _, b in swap],
+               "swap_peak_bytes": server._swap.peak_bytes,
+               "evacuate_ms": [t for t, _ in evac], "host_copy_ms": [t for t, _ in swap],
+               "restore_ms": [t for t, _ in restore], "decode_steps": s.decode_steps,
+               "wall_s": wall, "decode_tok_s": (s.tokens_out - s.admitted) / s.decode_s,
+               "control_wall_s": ctl_wall,
+               "control_decode_tok_s": (control.stats.tokens_out - control.stats.admitted)
+               / control.stats.decode_s,
+               "bitwise_equal_control": True, "stats": s.to_json()}
+        if name == "pressure":
+            row.update(pool_pages=pressure_pool, fit_checks=reserved[:12])
+        emit(row)
+        del server, control, pre, ctl_engine
+    return total
+
+
+def chain(eng, prompt, turns):
+    """A conversation driven by hand, uninterrupted, on a session-off
+    engine, row 0 live and the others free (the server's GEMM height):
+    admitted as the server admits it (page-sized chunks, the last fused
+    with the insert), each extension teacher-forced by single decode
+    steps. ``turns``: [(extension or None, max_new), ...]; returns one
+    output list a turn."""
+    import numpy as np
+    import torch
+
+    n = eng.ecfg.max_batch
+    active = [True] + [False] * (n - 1)
+    cache = eng.alloc_slot_cache()
+    S, c = len(prompt), eng.chunk_tokens()
+    if S <= c:
+        logits, cache = eng.insert_request(cache, 0, prompt)
+    else:
+        bounds = sorted(set(range(0, S, c)) | {S})
+        scratch = eng.chunk_init(S)
+        for s0, s1 in zip(bounds[:-2], bounds[1:-1]):
+            _, scratch = eng.chunk_step(scratch, prompt[s0:s1], s0)
+        logits, cache = eng.chunk_final(cache, 0, scratch, prompt[bounds[-2]:], bounds[-2])
+
+    def step(tok):
+        toks = np.zeros((n, 1), np.int32)
+        toks[0, 0] = tok
+        lg, c_ = eng.decode(cache, toks)
+        return int(torch.argmax(lg[0])), eng.mask_free(c_, active)
+
+    t, outs = int(torch.argmax(logits)), []
+    for ext, max_new in turns:
+        if ext is not None:
+            for f in [outs[-1][-1]] + [int(x) for x in ext[:-1]]:
+                _, cache = step(f)
+            t, cache = step(int(ext[-1]))
+        out = [t]
+        for _ in range(max_new - 1):
+            t, cache = step(t)
+            out.append(t)
+        outs.append(out)
+    return outs
+
+
+SESSION_PROMPTS = (700, 1000)
+SESSION_NEW, SESSION_EXT = 32, 16
+
+
+def phase_serve_session(engine, cfg) -> dict:
+    """Two conversations (prompts 700 and 1000, 32 new tokens a turn; each
+    turn returns with a 16-token extension; the 1000-token one takes a
+    third turn), dense and paged. The host tier is sized at 1.5x the
+    first parked row, so the second park spills the first to disk and
+    its return loads it back. Every turn bitwise equal to the
+    uninterrupted chain on a session-off engine (the same max_batch and
+    spec_k), no prefill chunk for a hit, K2/K5 counted; the returning
+    turn's time to first token beside a cold admission of its prompt."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import sharded
+    from repro_torch.core.cache import SessionStore
+    from repro_torch.serving import Request, SlotServer
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in SESSION_PROMPTS]
+    exts = [[rng.integers(0, cfg.vocab, SESSION_EXT) for _ in range(2)] for _ in prompts]
+    plans = [[(None, SESSION_NEW), (exts[0][0], SESSION_NEW)],
+             [(None, SESSION_NEW), (exts[1][0], SESSION_NEW), (exts[1][1], SESSION_NEW)]]
+    total = {"dense": 0, "paged": 0}
+    saves, loads = [], []
+    save, load = sharded.save_mini, sharded.load_mini
+    host_timed(sharded, "save_mini", saves)
+    host_timed(sharded, "load_mini", loads)
+    try:
+        for mode in ("dense", "paged"):
+            ekw = dict(paged=True, page_size=256, debug_invariants=True) if mode == "paged" else {}
+            with tempfile.TemporaryDirectory() as tmp:
+                store = SessionStore(capacity_bytes=1 << 62, disk_dir=tmp)
+                put = store.put
+
+                def sized_put(trace, mini, meta):
+                    if store.parks == 0:  # the host tier holds one row
+                        store.capacity_bytes = int(1.5 * mini_bytes(mini))
+                    put(trace, mini, meta)
+
+                store.put = sized_put
+                eng = slot_engine(engine, cfg, session_cache=True, **ekw)
+                server = SlotServer(eng, session_store=store)
+                restores = []
+                device_timed(eng, "restore", restores)
+                outs, toks, turn_reqs = [[], []], list(prompts), []
+                chunks_before_hits = None
+                for k in range(3):
+                    live = [c for c in range(2) if k < len(plans[c])]
+                    for c in live:
+                        ext = plans[c][k][0]
+                        if ext is not None:
+                            toks[c] = np.concatenate([toks[c], outs[c][-1], ext])
+                        req = Request(rid=10 * k + c, max_new=SESSION_NEW, tokens=toks[c])
+                        turn_reqs.append((k, c, req))
+                        server.submit(req)
+                    if k == 1:
+                        chunks_before_hits = server.stats.prefill_chunks
+                    total[mode] += served(server, mode, cfg)
+                    for c in live:
+                        outs[c].append(np.asarray(server.done[10 * k + c].output))
+                s = server.stats
+                tag = f"serve_session {mode}"
+                check(s.session_hits == 3 and s.session_parks == 5,
+                      f"{tag}: {s.session_hits} hits, {s.session_parks} parks")
+                check(s.prefill_chunks == chunks_before_hits,
+                      f"{tag}: a hit ran prefill chunks")
+                check(store.spills >= 1 and store.loads >= 1,
+                      f"{tag}: {store.spills} spills, {store.loads} loads")
+                if mode == "paged":
+                    pool_clean(server, tag)
+                base = slot_engine(engine, cfg, **ekw)
+                for c in range(2):
+                    want = chain(base, prompts[c], plans[c])
+                    for k, (got, w) in enumerate(zip(outs[c], want)):
+                        check(list(got) == w,
+                              f"{tag}: conversation {c} turn {k} differs from its chain")
+                # what a hit saves a user: the returning turn's time to first
+                # token beside a cold admission of the same prompt (the 700
+                # conversation's: a prompt past 1024 tokens prefills only at
+                # a multiple of 1024, flash attention's tile, in both packages)
+                last = next(r for k, c, r in turn_reqs if (k, c) == (1, 0))
+                cold = SlotServer(base)
+                cold_req = Request(rid=0, max_new=SESSION_NEW, tokens=last.tokens)
+                cold.submit(cold_req)
+                total[mode] += served(cold, mode, cfg)
+                emit({"phase": "serve_session", "mode": mode,
+                      "prompts": list(SESSION_PROMPTS), "max_new": SESSION_NEW,
+                      "extension": SESSION_EXT, "turns": [len(p) for p in plans],
+                      "session_hits": s.session_hits, "session_parks": s.session_parks,
+                      "session_evictions": s.session_evictions,
+                      "session_restored_pages": s.session_restored_pages,
+                      "host_capacity_bytes": store.capacity_bytes,
+                      "session_cache_mb": store.capacity_bytes / 2 ** 20,
+                      "spills": store.spills, "loads": store.loads,
+                      "peak_host_bytes": store.peak_bytes,
+                      "parked_bytes": [e["nbytes"] for e in store._host.values()]
+                      + [e["nbytes"] for e in store._disk.values()],
+                      "save_mini_ms": [t for t, _ in saves], "load_mini_ms": [t for t, _ in loads],
+                      "restore_ms": [t for t, _ in restores],
+                      "hit_prompt": len(last.tokens),
+                      "hit_ttft_s": last.t_first - last.t_submit,
+                      "cold_ttft_s": cold_req.t_first - cold_req.t_submit,
+                      "cold_prefill_chunks": cold.stats.prefill_chunks,
+                      "bitwise_equal_chain": True, "stats": s.to_json()})
+                saves.clear(), loads.clear()
+                del server, eng, base, cold
+    finally:
+        sharded.save_mini, sharded.load_mini = save, load
+    return total
+
+
+FAULT_REQUESTS, FAULT_SYS = 8, 512
+
+
+def phase_serve_faults(engine, cfg) -> dict:
+    """The paged prefix engine with sessions, preemption and
+    debug_invariants under a FaultPlan of every kind over its first 40
+    steps, 8 requests (a shared 512-token system prompt, classes 0 and
+    1): the run drains, references are conserved after every admit and
+    retire, no page leaks, and every request no fault touched is bitwise
+    equal to its control (the same requests, no faults)."""
+    import numpy as np
+
+    from repro_torch.distributed import FaultEvent, FaultPlan
+    from repro_torch.serving import Request, SlotServer
+
+    ekw = dict(paged=True, page_size=256, prefix_cache=True, debug_invariants=True)
+    rng = np.random.default_rng(8)
+    sys_prompt = rng.integers(0, cfg.vocab, FAULT_SYS)
+    spec = [(int(n), int(m)) for n, m in zip(rng.integers(100, 700, FAULT_REQUESTS),
+                                             rng.integers(64, 128, FAULT_REQUESTS))]
+    sfx = [rng.integers(0, cfg.vocab, n) for n, _ in spec]
+    reqs = lambda: [Request(rid=i, max_new=m, priority=i % 2,
+                            tokens=np.concatenate([sys_prompt, sfx[i]]))
+                    for i, (_, m) in enumerate(spec)]
+    plan = FaultPlan([FaultEvent(3, "chunk_abort"), FaultEvent(5, "pool_squeeze", 6),
+                      FaultEvent(9, "park", 1), FaultEvent(11, "pool_squeeze", 0),
+                      FaultEvent(12, "resume", 1), FaultEvent(16, "cancel", 1),
+                      FaultEvent(20, "park", 1), FaultEvent(22, "session_expire", 1),
+                      FaultEvent(25, "deadline", 1), FaultEvent(28, "resume", 2),
+                      FaultEvent(31, "chunk_abort"), FaultEvent(34, "straggler", 5.0)])
+    eng = slot_engine(engine, cfg, session_cache=True, preempt=True, **ekw)
+    server = SlotServer(eng, fault_plan=plan)
+    for r in reqs():
+        server.submit(r)
+    t0 = time.perf_counter()
+    launches = served(server, "paged", cfg)
+    wall = time.perf_counter() - t0
+    s = server.stats
+    check(len(plan.fired) == len(plan.events),
+          f"serve_faults: {len(plan.fired)} of {len(plan.events)} faults fired "
+          f"in {server._step_no} steps")
+    check(not server.queue and server._task is None and len(server._swap) == 0,
+          "serve_faults: the run did not drain")
+    pool_clean(server, "serve_faults")
+    control = SlotServer(slot_engine(engine, cfg, **ekw))
+    for r in reqs():
+        control.submit(r)
+    launches += served(control, "paged", cfg)
+    touched = sorted(rid for rid, r in server.done.items() if r.status != "done")
+    compared = 0
+    for rid, r in control.done.items():
+        if rid not in touched:
+            check(np.array_equal(server.done[rid].output, r.output),
+                  f"serve_faults: untouched request {rid} differs from its control")
+            compared += 1
+    check(compared >= 3, f"serve_faults: only {compared} untouched requests")
+    emit({"phase": "serve_faults", "requests": FAULT_REQUESTS, "system_prompt": FAULT_SYS,
+          "faults": [[e.step, e.kind, e.arg] for e in plan.fired],
+          "steps": server._step_no, "touched": touched,
+          "statuses": {rid: r.status for rid, r in sorted(server.done.items())},
+          "compared_bitwise": compared, "cancelled": s.cancelled, "expired": s.expired,
+          "preemptions": s.preemptions, "session_parks": s.session_parks,
+          "session_hits": s.session_hits, "session_evictions": s.session_evictions,
+          "prefix_hits": s.prefix_hits, "prefix_evictions": s.prefix_evictions,
+          "k5_launches": launches, "wall_s": wall, "stats": s.to_json()})
+    return {"dense": 0, "paged": launches}
+
+
 def compressed_bytes_per_token(cfg, engine):
     """(compressed, bf16) bytes a token of context takes in the cache over
     all layers and kv heads, from the calibrated specs (payload bits, pack
@@ -1522,6 +1978,9 @@ def main() -> int:
     spec = phase_serve_spec(engine, cfg, serve, serve_paged)
     del serve_paged["engine"]
     phase_spec_rows(engine, cfg)
+    preempt = phase_serve_preempt(engine, cfg)
+    session = phase_serve_session(engine, cfg)
+    faults = phase_serve_faults(engine, cfg)
     mv = phase_matvec(engine, device)
     configs = phase_serve_configs(smollm, device)
     # qwen3-32b's 65.5 GB of weights need the card to themselves
@@ -1539,10 +1998,12 @@ def main() -> int:
     emit({"kernels": [
         row("fused_packed_attention", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:172", k2,
-            serve["launches"] + spec["dense"] + configs["launches"]),
+            serve["launches"] + spec["dense"] + configs["launches"] + preempt["dense"]
+            + session["dense"]),
         row("fused_packed_attention_paged", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:375", k5,
-            serve_paged["launches"] + spec["paged"] + prefix["launches"]),
+            serve_paged["launches"] + spec["paged"] + prefix["launches"] + preempt["paged"]
+            + session["paged"] + faults["paged"]),
         row("kpack_tier_scores", "tier_matvec.cu",
             "src/repro/kernels/kpack_matvec.py:69", mv["K3"], mv["K3"]["launches"]),
         row("vpack_tier_out", "tier_matvec.cu",

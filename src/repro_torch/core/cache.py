@@ -21,10 +21,13 @@ Where the reference returned a new cache from donated buffers, these
 functions update the cache tensors IN PLACE and return the same object:
 ``prefill_cache``, ``prefill_append``, ``append_token``, ``reset_slot``,
 ``mask_free_slots``, ``insert_row``, ``insert_row_paged``, the pool
-primitives and the prefix-sharing ops (``share_pages``, ``acquire_pages``,
-``release_pages``, ``seed_prefix_from_pages``).
+primitives, the prefix-sharing ops (``share_pages``, ``acquire_pages``,
+``release_pages``, ``seed_prefix_from_pages``) and ``restore_row``.
 ``slice_compressed`` returns views (dense) or a gathered copy (paged) for
-reads only.
+reads only. ``evacuate_row`` frees a row in place and returns its bytes
+as a fresh dense B=1 mini-cache, which ``SwapStore`` (preempted rows) and
+``SessionStore`` (parked sessions, host RAM with an optional disk tier)
+keep on the host.
 
 Invariants (as in the reference): ``n_comp`` is block-aligned; a flush
 fires before the write that would overflow the residual; free slots have
@@ -33,13 +36,19 @@ zero counters at rest.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import shutil
+import time
+from collections import OrderedDict
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .quantization import QuantConfig
 from .repacking import median_repack
-from ..utils import cdiv, round_up
+from ..utils import cdiv, leaf_nbytes, round_up, to_host, tree_flatten, tree_map
 from .tiered import (
     TierSpec,
     TieredCache,
@@ -1045,3 +1054,347 @@ def prefill_append(cache: LayerKVCache, k: torch.Tensor, v: torch.Tensor,
     cache.n_comp += Lb
     cache.n_resid += rem
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Preemption and sessions: a row out to a dense B=1 mini-cache and back
+# ---------------------------------------------------------------------------
+
+
+def evacuate_row(cache, slot: int, n_pages: int = 0, n_shared: int = 0):
+    """Evacuate row ``slot`` into a dense batch-1 mini-cache and FREE the
+    row, on one ``LayerKVCache`` or each of a model's list. Returns
+    ``(cache, mini)``: the cache updated IN PLACE (exactly a
+    ``reset_slot``), the mini a fresh copy (a list for a list), so the
+    next admission into the slot cannot reach it.
+
+    Dense: the mini copies the row's every leaf at full capacity
+    (``n_pages`` / ``n_shared`` ignored). Paged: ``n_pages`` must be the
+    row's live page count ``ceil(n_comp / page_size)``, which the
+    scheduler mirrors on the host; the leading ``n_shared`` pages are a
+    prefix mapped by reference, whose bytes are NOT copied: the row's
+    reference is released (the prefix index still pins them) and
+    ``restore_row`` maps the same ids back. The mini then holds only the
+    ``n_pages - n_shared`` owned suffix pages in its leading tokens, plus
+    the row's residual, counters (the full row's, prefix included) and
+    channel permutation. No forward pass runs."""
+    if isinstance(cache, list):
+        return cache, [evacuate_row(layer, slot, n_pages, n_shared)[1]
+                       for layer in cache]
+    if cache.pages is None:
+        mini = tree_map(lambda t: t[slot:slot + 1].clone(), cache)
+    else:
+        mini = _evacuate_row_paged(cache, slot, n_pages, n_shared)
+    cache.n_comp[slot] = 0
+    cache.n_resid[slot] = 0
+    return cache, mini
+
+
+def _evacuate_row_paged(cache: LayerKVCache, slot: int, n_pages: int,
+                        n_shared: int) -> LayerKVCache:
+    """The paged mini (a fresh dense B=1 cache) of row ``slot``; the row's
+    live pages are released, one reference each, after the gather."""
+    cfg, pool = cache.cfg, cache.pages
+    page = pool.page_size
+    h_kv, head_dim = cache.resid_k.shape[1], cache.resid_k.shape[-1]
+    k_sfx = n_pages - n_shared  # suffix pages whose bytes the row owns
+    if k_sfx < 0:
+        raise ValueError(f"n_shared {n_shared} exceeds n_pages {n_pages}")
+    mini = alloc_layer_cache(dataclasses.replace(cfg, paged=False), 1, h_kv,
+                             head_dim, max(page, k_sfx * page),
+                             dtype=cache.resid_k.dtype, device=cache.n_comp.device)
+    if k_sfx:
+        idx = pool.page_table[slot:slot + 1, n_shared:n_pages]
+        if cfg.policy == "none":
+            n = k_sfx * page
+            mini.raw_k[..., :n, :] = gather_pool_leaf(cache.raw_k, idx, token_axis=-2)
+            mini.raw_v[..., :n, :] = gather_pool_leaf(cache.raw_v, idx, token_axis=-2)
+        else:
+            write_tiered_prefix(mini.k, gather_tiered_pages(cache.k, idx))
+            write_tiered_prefix(mini.v, gather_tiered_pages(cache.v, idx))
+    if cfg.policy != "none":
+        mini.k.chan_perm.copy_(cache.k.chan_perm[slot:slot + 1])
+        mini.v.chan_perm.copy_(cache.v.chan_perm[slot:slot + 1])
+    for dst, src in ((mini.resid_k, cache.resid_k), (mini.resid_v, cache.resid_v),
+                     (mini.n_comp, cache.n_comp), (mini.n_resid, cache.n_resid)):
+        dst.copy_(src[slot:slot + 1])
+    # every live page gives back one reference: shared-prefix pages stay
+    # alive through the index's pin
+    pool_release_row(pool, slot, live_pages(cache.n_comp[slot], page))
+    return mini
+
+
+def restore_row(cache, slot: int, mini, shared_phys: torch.Tensor | None = None,
+                n_pages: int = 0, n_shared: int = 0):
+    """Stream an evacuated row back into row ``slot`` (the inverse of
+    ``evacuate_row``), IN PLACE, on one ``LayerKVCache`` (``mini`` one
+    mini) or each of a model's list (``mini`` a list). ``mini`` must lie
+    on the cache's device.
+
+    Dense: a plain ``insert_row``. Paged: the ``n_shared`` prefix pages
+    ``shared_phys`` (int [n_shared], the ids the row released) are mapped
+    back by reference, ``n_pages - n_shared`` fresh pages popped and the
+    mini's suffix bytes scattered into them; residual, counters and
+    channel permutation are restored slot-wise. Only the page placement
+    may differ from before the evacuation, and every read goes through
+    the page table, so decode resumes bitwise. No forward pass runs."""
+    if isinstance(cache, list):
+        for layer, m in zip(cache, mini):
+            restore_row(layer, slot, m, shared_phys, n_pages, n_shared)
+        return cache
+    if cache.pages is None:
+        return insert_row(cache, slot, mini)
+    cfg, pool = cache.cfg, cache.pages
+    k_sfx = n_pages - n_shared
+    # a restored slot was free: this release is a no-op kept for safety
+    pool_release_row(pool, slot, live_pages(cache.n_comp[slot], pool.page_size))
+    if n_shared:
+        pool_map_prefix(pool, slot, shared_phys)
+    phys = pool_pop_prefix(pool, slot, k_sfx, lp0=n_shared)[None]
+    if k_sfx and cfg.policy == "none":
+        _scatter_pages(cache.raw_k, mini.raw_k, phys, axis=-2)
+        _scatter_pages(cache.raw_v, mini.raw_v, phys, axis=-2)
+    elif k_sfx:
+        _scatter_pages_tiered(cache.k, mini.k, phys)
+        _scatter_pages_tiered(cache.v, mini.v, phys)
+    if cfg.policy != "none":
+        cache.k.chan_perm[slot] = mini.k.chan_perm[0]
+        cache.v.chan_perm[slot] = mini.v.chan_perm[0]
+    for dst, src in ((cache.resid_k, mini.resid_k), (cache.resid_v, mini.resid_v),
+                     (cache.n_comp, mini.n_comp), (cache.n_resid, mini.n_resid)):
+        dst[slot] = src[0]
+    return cache
+
+
+class SwapStore:
+    """Host-RAM tier of evacuated (preempted) rows: request id -> (host
+    copy of the mini-cache, scheduler metadata). The swapped bytes are the
+    compressed pages plus one residual buffer, not raw K/V. Pure host
+    state: the device transfers are ``evacuate_row``'s gather before a
+    put and ``restore_row``'s scatter after a pop."""
+
+    def __init__(self):
+        self._rows: dict[int, tuple[object, dict]] = {}
+        self.swapped_out = 0  # evacuations stored (cumulative)
+        self.swapped_in = 0  # restorations served (cumulative)
+        self.peak_bytes = 0
+
+    def put(self, rid: int, mini, meta: dict) -> None:
+        if rid in self._rows:
+            raise AssertionError(f"rid {rid} already swapped out")
+        self._rows[rid] = (to_host(mini), dict(meta))
+        self.swapped_out += 1
+        self.peak_bytes = max(self.peak_bytes, self.nbytes)
+
+    def pop(self, rid: int) -> tuple[object, dict]:
+        """Remove and return (mini, meta) for re-admission."""
+        row = self._rows.pop(rid)
+        self.swapped_in += 1
+        return row
+
+    def drop(self, rid: int) -> None:
+        """Discard a swapped row (its request was cancelled or expired)."""
+        self._rows.pop(rid, None)
+
+    def meta(self, rid: int) -> dict:
+        return self._rows[rid][1]
+
+    def metas(self):
+        """The metadata of every swapped row."""
+        return (m for _, m in self._rows.values())
+
+    def __contains__(self, rid: int) -> bool:
+        return rid in self._rows
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes of every swapped row (scalar leaves count zero)."""
+        return sum(getattr(leaf, "nbytes", 0) for mini, _ in self._rows.values()
+                   for leaf in tree_flatten(mini)[0])
+
+
+class SessionStore:
+    """Parked multi-turn sessions, host-side (voluntary, unlike
+    ``SwapStore``'s preempted rows): rows parked at retirement so a
+    returning session skips its re-prefill.
+
+    Keys are the session's raw token trace (prompt + generated, int64
+    bytes), so they never collide with ``SwapStore``'s integer request
+    ids; ``match`` finds the longest parked trace that prefixes a prompt.
+    The host tier holds copies of the evacuated minis, LRU by bytes
+    against ``capacity_bytes``; with ``disk_dir`` its LRU victims spill
+    to disk through ``checkpoint.sharded.save_mini`` instead of being
+    dropped. ``ttl_s`` expires idle entries on both tiers, checked at
+    every public call against the injectable ``clock``. Metadata (prefix
+    trie nodes included) stays on the host; only the mini's tensors
+    spill. Same process only: the structure for loading is the first
+    park's."""
+
+    def __init__(self, capacity_bytes: int = 256 << 20, ttl_s: Optional[float] = None,
+                 disk_dir: Optional[str] = None, clock=None):
+        self.capacity_bytes = int(capacity_bytes)
+        self.ttl_s = ttl_s
+        self.disk_dir = disk_dir
+        self.clock = clock if clock is not None else time.monotonic
+        # key -> {mini, meta, nbytes, t_used}; order == recency (LRU first)
+        self._host: OrderedDict[bytes, dict] = OrderedDict()
+        self._disk: OrderedDict[bytes, dict] = OrderedDict()  # key -> {path, ...}
+        self._len_count: dict[int, int] = {}  # trace length -> entries
+        self._treedef = None
+        self.parks = 0  # entries stored (cumulative)
+        self.hits = 0  # entries served back
+        self.evictions = 0  # capacity or replacement drops (entry lost)
+        self.expired = 0  # TTL or forced expiries (entry lost)
+        self.spills = 0  # host -> disk demotions
+        self.loads = 0  # disk -> caller promotions
+        self.peak_bytes = 0
+
+    # -- keys ---------------------------------------------------------------
+    @staticmethod
+    def key_of(trace) -> bytes:
+        return np.ascontiguousarray(np.asarray(trace, np.int64)).tobytes()
+
+    @staticmethod
+    def trace_of(key: bytes) -> np.ndarray:
+        return np.frombuffer(key, np.int64)
+
+    def _len_add(self, key: bytes, d: int) -> None:
+        n = len(key) // 8
+        c = self._len_count.get(n, 0) + d
+        assert c >= 0
+        if c:
+            self._len_count[n] = c
+        else:
+            self._len_count.pop(n, None)
+
+    # -- internals ----------------------------------------------------------
+    def _spill_path(self, key: bytes) -> str:
+        return os.path.join(self.disk_dir, f"sess-{hashlib.sha1(key).hexdigest()}")
+
+    def _forget(self, key: bytes, counter: str) -> None:
+        """Drop ``key`` from whichever tier holds it."""
+        ent = self._host.pop(key, None)
+        if ent is None:
+            ent = self._disk.pop(key, None)
+            if ent is not None:
+                shutil.rmtree(ent["path"], ignore_errors=True)
+        if ent is not None:
+            self._len_add(key, -1)
+            setattr(self, counter, getattr(self, counter) + 1)
+
+    def _purge(self) -> None:
+        if self.ttl_s is None:
+            return
+        now = self.clock()
+        for tier in (self._host, self._disk):
+            for key in [k for k, e in tier.items() if now - e["t_used"] > self.ttl_s]:
+                self._forget(key, "expired")
+
+    def _shrink(self) -> None:
+        """LRU-evict (or spill to disk) until the host tier fits."""
+        from ..checkpoint.sharded import save_mini
+
+        while self.nbytes > self.capacity_bytes and self._host:
+            key, ent = next(iter(self._host.items()))
+            if self.disk_dir is not None:
+                path = self._spill_path(key)
+                save_mini(path, ent["mini"])
+                del self._host[key]
+                self._disk[key] = {"path": path, "meta": ent["meta"],
+                                   "nbytes": ent["nbytes"], "t_used": ent["t_used"]}
+                self.spills += 1
+            else:
+                self._forget(key, "evictions")
+
+    # -- public -------------------------------------------------------------
+    def put(self, trace, mini, meta: dict) -> None:
+        """Park a session under its token ``trace``; a re-park of the same
+        trace replaces the old entry (which counts as evicted)."""
+        self._purge()
+        key = self.key_of(trace)
+        if key in self._host or key in self._disk:
+            self._forget(key, "evictions")
+        host_mini = to_host(mini)
+        leaves, treedef = tree_flatten(host_mini)
+        if self._treedef is None:
+            self._treedef = treedef
+        nbytes = sum(leaf_nbytes(x) for x in leaves)
+        self._host[key] = {"mini": host_mini, "meta": dict(meta),
+                           "nbytes": nbytes, "t_used": self.clock()}
+        self._len_add(key, +1)
+        self.parks += 1
+        self.peak_bytes = max(self.peak_bytes, self.nbytes)
+        self._shrink()
+
+    def match(self, tokens) -> Optional[bytes]:
+        """The longest parked trace that prefixes ``tokens``: a peek
+        (``take`` claims it), so a blocked admission can retry."""
+        self._purge()
+        if not self._len_count:
+            return None
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int64))
+        for n in sorted(self._len_count, reverse=True):
+            if n > len(toks):
+                continue
+            key = toks[:n].tobytes()
+            if key in self._host or key in self._disk:
+                return key
+        return None
+
+    def meta(self, key: bytes) -> dict:
+        ent = self._host.get(key) or self._disk.get(key)
+        return ent["meta"]
+
+    def take(self, key: bytes):
+        """Claim a matched entry: remove it and return ``(mini, meta)``,
+        loading it back from disk if it was spilled."""
+        ent = self._host.pop(key, None)
+        if ent is not None:
+            mini, meta = ent["mini"], ent["meta"]
+        else:
+            from ..checkpoint.sharded import load_mini
+
+            ent = self._disk.pop(key)
+            mini, _ = load_mini(ent["path"], self._treedef)
+            meta = ent["meta"]
+            shutil.rmtree(ent["path"], ignore_errors=True)
+            self.loads += 1
+        self._len_add(key, -1)
+        self.hits += 1
+        return mini, meta
+
+    def drop(self, key: bytes) -> None:
+        """Discard an entry that can no longer be served (its shared
+        prefix pages left the index while it was parked)."""
+        self._forget(key, "evictions")
+
+    def _by_age(self) -> list[tuple[float, bytes]]:
+        return sorted([(e["t_used"], k) for k, e in self._host.items()]
+                      + [(e["t_used"], k) for k, e in self._disk.items()])
+
+    def expire_now(self, n: int) -> int:
+        """Force-expire the ``n`` least recently used entries of both tiers
+        (the ``session_expire`` fault). Returns how many there were."""
+        order = self._by_age()
+        for _, key in order[:n]:
+            self._forget(key, "expired")
+        return min(n, len(order))
+
+    def traces(self, n: int) -> list[np.ndarray]:
+        """The ``n`` least recently used parked traces, oldest first (the
+        ``resume`` fault builds returning sessions from them)."""
+        return [self.trace_of(k) for _, k in self._by_age()[:n]]
+
+    def __contains__(self, key: bytes) -> bool:
+        return key in self._host or key in self._disk
+
+    def __len__(self) -> int:
+        return len(self._host) + len(self._disk)
+
+    @property
+    def nbytes(self) -> int:
+        """Host-tier bytes (disk entries count zero)."""
+        return sum(e["nbytes"] for e in self._host.values())

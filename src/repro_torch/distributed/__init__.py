@@ -1,5 +1,5 @@
 """Fault handling of the serving loop (the torch port of
-``repro/distributed``'s straggler monitor)."""
-from .fault import StragglerMonitor
+``repro/distributed/fault.py``, all but the elastic plan)."""
+from .fault import CheckpointPolicy, FaultEvent, FaultPlan, StragglerMonitor
 
-__all__ = ["StragglerMonitor"]
+__all__ = ["CheckpointPolicy", "FaultEvent", "FaultPlan", "StragglerMonitor"]

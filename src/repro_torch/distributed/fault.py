@@ -1,13 +1,26 @@
-"""Straggler detection (the torch port of ``repro/distributed/fault.py::
-StragglerMonitor``; the checkpoint policy, the fault plan and the elastic
-plan are not ported yet).
+"""Fault handling of the serving loop (the torch port of
+``repro/distributed/fault.py``; its elastic plan, ``ElasticPlan`` /
+``downscale_plan``, waits for the multi-device port).
 
-The serving scheduler feeds it each decode launch's wall time; a
-sustained straggler verdict turns speculative decode off for the rest of
-the run (``serving.engine.SlotServer._observe_launch``)."""
+``StragglerMonitor`` watches each decode launch's wall time; a sustained
+straggler verdict turns speculative decode off for the rest of the run
+(``serving.engine.SlotServer._observe_launch``). ``FaultPlan`` schedules
+faults at exact scheduler steps (``SlotServer._apply_faults``), so a
+hostile run is reproducible launch by launch. ``CheckpointPolicy`` is the
+training loop's save cadence."""
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
+
+
+@dataclasses.dataclass
+class CheckpointPolicy:
+    every_steps: int = 50
+    keep: int = 3
+
+    def should_save(self, step: int) -> bool:
+        return step > 0 and step % self.every_steps == 0
 
 
 class StragglerMonitor:
@@ -38,3 +51,67 @@ class StragglerMonitor:
             return "straggler"
         self.consecutive = 0
         return "ok"
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    """One scheduled fault: fires when the serving scheduler's step counter
+    reaches ``step``."""
+
+    step: int
+    kind: str  # one of FaultPlan.KINDS
+    arg: float = 0.0
+
+
+class FaultPlan:
+    """Deterministic fault schedule for the serving scheduler: every fault
+    fires at an exact scheduler step and acts through the seams real
+    traffic uses, so the scheduler's conservation invariants (free + held
+    pages == pool, refcounts, reservations) can be driven through hostile
+    schedules reproducibly.
+
+    Kinds:
+      * ``pool_squeeze``: hold ``arg`` pool pages back from admission
+        (0 releases the squeeze);
+      * ``cancel``: cancel ``arg`` live requests, occupied slots in
+        ascending order first, then queued requests in submit order, then
+        the in-flight prefill;
+      * ``deadline``: force-expire the same selection at the next reap;
+      * ``chunk_abort``: abort the in-flight chunked admission at its
+        chunk boundary and requeue it (its prefill restarts);
+      * ``straggler``: feed an ``arg``-second launch time to the watchdog;
+      * ``park``: end the turn of up to ``arg`` occupied slots (ascending):
+        they retire as ``parked`` with their partial output, their cache
+        parked in the session store when there is one;
+      * ``resume``: submit up to ``arg`` returning sessions built from the
+        oldest parked traces (a short fixed suffix, request ids far above
+        real traffic);
+      * ``session_expire``: force-expire up to ``arg`` parked sessions,
+        oldest first.
+    """
+
+    KINDS = ("pool_squeeze", "cancel", "deadline", "chunk_abort", "straggler",
+             "park", "resume", "session_expire")
+
+    def __init__(self, events=()):
+        self.events: list[FaultEvent] = sorted(events, key=lambda e: e.step)
+        for e in self.events:
+            if e.kind not in self.KINDS:
+                raise ValueError(f"unknown fault kind {e.kind!r}")
+        self.fired: list[FaultEvent] = []
+
+    def at(self, step: int) -> list[FaultEvent]:
+        """The events scheduled for ``step`` (the scheduler marks them
+        fired)."""
+        return [e for e in self.events if e.step == step]
+
+    @classmethod
+    def storm(cls, kind: str, start: int, count: int, every: int = 1,
+              arg: float = 1.0) -> "FaultPlan":
+        """``count`` events of ``kind`` from ``start``, one per ``every``
+        steps."""
+        return cls([FaultEvent(step=start + i * every, kind=kind, arg=arg)
+                    for i in range(count)])
+
+    def __add__(self, other: "FaultPlan") -> "FaultPlan":
+        return FaultPlan([*self.events, *other.events])

@@ -21,6 +21,7 @@ plain decode (random prompts give few drafts and little acceptance).
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -63,6 +64,29 @@ def main(argv=None) -> int:
                     "pass; outputs equal plain decode's")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="most drafts a verify pass (window spec-k + 1)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="a blocked higher-class admission swaps a lower-class "
+                    "row out to host memory; it resumes bitwise later")
+    ap.add_argument("--aging-steps", type=int, default=32,
+                    help="scheduler steps per class promotion of queued work "
+                    "(0 = strict priority)")
+    ap.add_argument("--priority-every", type=int, default=0, metavar="N",
+                    help="every Nth request is class 0, the rest class 1 "
+                    "(0 = all class 0)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline; expired requests retire with "
+                    "their partial output")
+    ap.add_argument("--session-cache", action="store_true",
+                    help="park retiring rows host-side; returning sessions "
+                    "restore them and prefill only their new suffix")
+    ap.add_argument("--session-cache-mb", type=int, default=256,
+                    help="host budget of parked rows (LRU by bytes past it)")
+    ap.add_argument("--session-ttl-s", type=float, default=None,
+                    help="idle parked sessions expire after this (default never)")
+    ap.add_argument("--session-disk-dir", default=None, metavar="DIR",
+                    help="spill host-tier LRU victims here (default: drop them)")
+    ap.add_argument("--stats-json", default=None, metavar="PATH",
+                    help="write the final SlotStats as JSON to PATH")
     args = ap.parse_args(argv)
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
@@ -78,7 +102,12 @@ def main(argv=None) -> int:
                         prefill_chunk_pages=args.prefill_chunk_pages,
                         prefix_cache=args.prefix_cache,
                         prefix_cache_pages=args.prefix_cache_pages,
-                        spec_decode=args.spec_decode, spec_k=args.spec_k)
+                        spec_decode=args.spec_decode, spec_k=args.spec_k,
+                        preempt=args.preempt, aging_steps=args.aging_steps,
+                        session_cache=args.session_cache,
+                        session_cache_mb=args.session_cache_mb,
+                        session_ttl_s=args.session_ttl_s,
+                        session_disk_dir=args.session_disk_dir)
     t0 = time.time()
     engine = Engine(cfg, params, get_policy(args.policy), ecfg)
     print(f"engine built in {time.time() - t0:.1f}s; policy={args.policy}, "
@@ -97,7 +126,10 @@ def main(argv=None) -> int:
     for rid in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len + 1))
         toks = np.concatenate([sys_prompt, rng.integers(0, cfg.vocab, plen)])
-        server.submit(Request(rid=rid, max_new=args.max_new, tokens=toks))
+        n = args.priority_every
+        server.submit(Request(rid=rid, max_new=args.max_new, tokens=toks,
+                              priority=0 if n <= 0 or rid % n == 0 else 1,
+                              deadline_ms=args.deadline_ms))
     kernels = (fused_packed_attention, fused_packed_attention_paged)
     for k in kernels:
         k.launches = 0
@@ -109,6 +141,18 @@ def main(argv=None) -> int:
     n_tok = sum(len(r.output) for r in done)
     print(f"{args.requests} requests, {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / dt:.1f} tok/s on {args.device}, prefill included)")
+    if args.session_cache:
+        # every request returns with a short follow-up on its whole trace
+        t0 = time.time()
+        for rid in range(args.requests):
+            r = server.done[rid]
+            trace = np.concatenate([np.asarray(r.tokens), np.asarray(r.output)])
+            server.submit(Request(rid=args.requests + rid, max_new=args.max_new,
+                                  tokens=np.concatenate(
+                                      [trace, rng.integers(0, cfg.vocab, 8)])))
+        n2 = sum(len(r.output) for r in server.run())
+        print(f"{args.requests} returning sessions, {n2} tokens in "
+              f"{time.time() - t0:.1f}s")
     s = server.stats
     print(f"slot scheduler: {s.decode_steps} decode steps, "
           f"occupancy {s.occupancy:.2f}, {s.slot_reuses} slot reuses, "
@@ -127,6 +171,23 @@ def main(argv=None) -> int:
               f"{s.spec_accepted}/{s.spec_drafted} drafts accepted (rate "
               f"{s.acceptance_rate:.2f}), {s.degraded_steps} degraded steps "
               "(speculation off after the straggler watchdog)")
+    if args.preempt:
+        print(f"preemption: {s.preemptions} swap-outs ({s.swapped_pages} pages "
+              f"out / {s.restored_pages} back), swap store peak "
+              f"{server._swap.peak_bytes / 1e6:.1f} MB")
+    if args.session_cache:
+        st = server._sessions
+        print(f"session cache: {s.session_parks} parks, {s.session_hits}/"
+              f"{s.session_lookups} hits (rate {s.session_hit_rate:.2f}), "
+              f"{s.session_restored_pages} pages restored, {s.session_evictions} "
+              f"evicted or expired; host {st.nbytes / 1e6:.1f} MB resident (peak "
+              f"{st.peak_bytes / 1e6:.1f}), {st.spills} disk spills / {st.loads} loads")
+    if s.cancelled or s.expired:
+        print(f"retired early: {s.cancelled} cancelled, {s.expired} past deadline")
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            json.dump(s.to_json(), f, indent=2)
+        print(f"wrote {args.stats_json}")
     where = "CUDA kernel" if engine.device.type == "cuda" else "plain version on CPU"
     print(f"fused kernel launches: {sum(k.launches for k in kernels)} ("
           + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)

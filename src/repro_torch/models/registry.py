@@ -35,6 +35,10 @@ ModelApi:
       -> (last_logits [1, V], mini)
   prefix_chunk_insert(pack_cfg, cache, slot, mini, prefix_phys,
                       n_prefix=..., prompt_len=...) -> cache
+  evacuate_slot(cache, slot, n_pages=..., n_shared=...) -> (cache, minis):
+      swap a row out to dense B=1 minis, the row freed (preemption, sessions)
+  restore_slot(cache, slot, minis, shared_phys, n_pages=..., n_shared=...)
+      -> cache: stream evacuated minis back, no forward pass
   supports_paged: the decode state is page-addressable (paged storage)
 Caches are updated in place and returned.
 """
@@ -66,6 +70,8 @@ class ModelApi:
     prefix_chunk_init: Callable
     prefix_chunk: Callable
     prefix_chunk_insert: Callable
+    evacuate_slot: Callable | None
+    restore_slot: Callable | None
     supports_paged: bool
 
 
@@ -88,6 +94,8 @@ def _transformer_api() -> ModelApi:
         prefix_chunk_init=transformer.prefix_chunk_init,
         prefix_chunk=transformer.prefix_chunk,
         prefix_chunk_insert=transformer.prefix_chunk_insert,
+        evacuate_slot=transformer.evacuate_cache_slot,
+        restore_slot=transformer.restore_cache_slot,
         supports_paged=True,
     )
 

@@ -23,6 +23,7 @@ from ..core.cache import (
     append_token,
     append_window,
     commit_window,
+    evacuate_row,
     flush_rows,
     insert_row,
     insert_row_paged,
@@ -31,6 +32,7 @@ from ..core.cache import (
     prefill_append,
     prefill_cache,
     reset_slot,
+    restore_row,
     seed_prefix_from_pages,
     slice_compressed,
 )
@@ -411,6 +413,24 @@ def reset_cache_slot(cache: list[LayerKVCache], slot: int):
     for layer in cache:
         reset_slot(layer, slot)
     return cache
+
+
+def evacuate_cache_slot(cache: list[LayerKVCache], slot: int, n_pages: int = 0,
+                        n_shared: int = 0):
+    """Swap row ``slot`` out of every layer (``core.cache.evacuate_row``):
+    returns (the cache with the row freed IN PLACE, the per-layer dense
+    B=1 minis). ``n_pages`` / ``n_shared``: the scheduler's host mirror
+    of the row's live pages and its shared-prefix pages (paged only)."""
+    return evacuate_row(cache, slot, n_pages, n_shared)
+
+
+def restore_cache_slot(cache: list[LayerKVCache], slot: int, mini, shared_phys,
+                       n_pages: int = 0, n_shared: int = 0):
+    """Stream evacuated minis back into row ``slot`` of every layer, IN
+    PLACE (``core.cache.restore_row``): shared-prefix pages mapped by
+    reference, the suffix scattered into fresh pages. Pure data movement:
+    no forward pass."""
+    return restore_row(cache, slot, mini, shared_phys, n_pages, n_shared)
 
 
 def mask_free(cache: list[LayerKVCache], active):

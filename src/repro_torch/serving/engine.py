@@ -44,9 +44,17 @@ window's height (``decode_step``'s ``rows``): on the GPU a product's row
 sums in another order at another row count, so the two paths must issue
 the same shapes.
 
-Preemption, sessions, fault plans and meshes are not ported yet
-(ROADMAP.md); where the reference consults them, this engine takes the
-branch the reference takes when they are off.
+PREEMPTIVE engines (``EngineConfig.preempt``) give requests a priority
+class: a head that cannot seat swaps a lower-class victim's compressed
+row out to host memory (``core.cache.evacuate_row`` into a
+``SwapStore``) and the victim later resumes from it bitwise
+(``restore_row``, no forward pass). SESSION-CACHE engines
+(``EngineConfig.session_cache``) park a retiring row in a
+``SessionStore`` keyed by its token trace (host RAM, LRU by bytes,
+optional disk spill and TTL); a returning turn restores it and ingests
+only its new suffix, teacher-forced through the decode launches.
+Cancellation, deadlines and a deterministic ``FaultPlan`` retire work
+through the same paths. Meshes are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -60,14 +68,16 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.cache import (
     PackKVConfig,
+    SessionStore,
+    SwapStore,
     acquire_pages,
     bucket_length,
     calibrate_specs,
     release_pages,
 )
-from ..distributed.fault import StragglerMonitor
+from ..distributed.fault import FaultPlan, StragglerMonitor
 from ..models import get_model
-from ..utils import cdiv
+from ..utils import cdiv, to_device
 
 
 @dataclasses.dataclass
@@ -97,6 +107,18 @@ class EngineConfig:
     # shared-prefix page cache (paged storage only):
     prefix_cache: bool = False  # reuse indexed prompt pages across requests
     prefix_cache_pages: int | None = None  # most pages the index may pin
+    # preemption:
+    preempt: bool = False  # swap a lower class's compressed row out to host
+    #   memory when a higher-class head cannot seat; it resumes bitwise
+    aging_steps: int = 32  # scheduler steps per one class promotion of a
+    #   waiting head (no starvation); 0 = strict priority
+    # multi-turn session cache:
+    session_cache: bool = False  # park retiring rows host-side by their
+    #   token trace; a returning turn restores and ingests only its suffix
+    session_cache_mb: int = 256  # host budget of parked rows (LRU by bytes)
+    session_ttl_s: float | None = None  # idle expiry (None = never)
+    session_disk_dir: str | None = None  # spill LRU victims here through
+    #   ``checkpoint.sharded.save_mini`` (None = drop them)
     debug_invariants: bool = False  # check refcount conservation after every
     #   admit/retire (a device read per check: tests and bring-up only)
     device: str = "cuda"
@@ -135,6 +157,15 @@ class Engine:
                                  "--spec-decode: it has no verify pass")
             if ecfg.spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {ecfg.spec_k}")
+        if ecfg.session_cache and cfg.window:
+            raise ValueError(
+                "--session-cache does not support sliding-window attention "
+                f"(window={cfg.window}): evicted window tokens break the "
+                "parked-trace identity the session key relies on")
+        if (ecfg.preempt or ecfg.session_cache) and self.api.evacuate_slot is None:
+            feature = "--preempt" if ecfg.preempt else "--session-cache"
+            raise ValueError(f"family {cfg.family!r} cannot serve {feature}: "
+                             "it has no evacuate/restore ops")
         if ecfg.paged:
             if not self.api.supports_paged:
                 raise ValueError(f"family {cfg.family!r} cannot serve paged: "
@@ -334,6 +365,20 @@ class Engine:
     def free_slot(self, cache, slot: int):
         return self.api.reset_slot(cache, slot)
 
+    def evacuate(self, cache, slot: int, n_pages: int, n_shared: int = 0):
+        """Swap row ``slot`` out: (cache with the row freed, per-layer
+        dense B=1 minis holding its owned bytes, on the device).
+        ``n_pages``: the row's live pages (host-mirrored); ``n_shared``:
+        its shared prefix pages, released by reference, not copied."""
+        return self.api.evacuate_slot(cache, slot, n_pages, n_shared)
+
+    def restore(self, cache, slot: int, mini, shared_phys=(), n_pages: int = 0,
+                n_shared: int = 0):
+        """Stream evacuated minis (host or device) back into ``slot``; no
+        forward pass."""
+        return self.api.restore_slot(cache, slot, to_device(mini, self.device),
+                                     self._page_ids(shared_phys), n_pages, n_shared)
+
     def mask_free(self, cache, active):
         return self.api.mask_free(cache, torch.as_tensor(
             np.asarray(active, bool), device=self.device))
@@ -364,12 +409,41 @@ class Request:
     tokens: np.ndarray  # [S] prompt at its true length
     max_new: int
     output: np.ndarray | None = None
-    status: str = "queued"  # queued -> active -> done
+    # admission class, 0 the most urgent: FIFO within a class, lower
+    # classes delayed but never starved (EngineConfig.aging_steps)
+    priority: int = 0
+    # wall-clock budget in ms from submit: past it the request retires as
+    # 'expired' at the next scheduler step, partial output kept
+    deadline_ms: float | None = None
+    # queued -> active -> done | cancelled | expired | parked (a preempted
+    # request goes back to queued in its place; 'parked' is a forced end of
+    # turn, partial output kept, the cache parked when sessions are on)
+    status: str = "queued"
+    # latency (wall-clock seconds, filled by SlotServer):
+    t_submit: float = 0.0  # stamped by submit()
+    t_first: float | None = None  # first token (TTFT = t_first - t_submit)
+    token_times: list = dataclasses.field(default_factory=list)  # one per
+    #   token; the tokens of one multi-step launch share a time
+    n_preempts: int = 0  # times swapped out mid-decode
+    _seq: int = dataclasses.field(default=0, repr=False)  # global submit order
+    _enq_step: int = dataclasses.field(default=0, repr=False)  # step when
+    #   (re)queued: the aging clock
+
+    def cancel(self) -> None:
+        """Ask for cancellation: honoured at the next scheduler step,
+        whether the request is queued, mid-prefill, swapped out or
+        decoding (partial output kept)."""
+        self._cancelled = True
+
+    @property
+    def cancelled(self) -> bool:
+        return getattr(self, "_cancelled", False)
 
 
 @dataclasses.dataclass
 class SlotStats:
-    """Scheduler telemetry (the subset of the reference's this port has)."""
+    """Scheduler telemetry (the reference's counters; the per-launch log
+    is not kept)."""
 
     n_slots: int = 0
     decode_steps: int = 0  # decode steps executed
@@ -399,12 +473,28 @@ class SlotStats:
     spec_launches: int = 0  # verify passes (window spec_k + 1)
     spec_drafted: int = 0  # drafts submitted for verification
     spec_accepted: int = 0  # drafts accepted (emitted without a pass of their own)
+    # preemption (zeros when it is off):
+    preemptions: int = 0  # slots swapped out for a higher class
+    swapped_pages: int = 0  # pool pages evacuated to the SwapStore
+    restored_pages: int = 0  # pool pages streamed back on resume
+    cancelled: int = 0  # requests retired by Request.cancel()
+    expired: int = 0  # requests retired past their deadline_ms
     degraded_steps: int = 0  # launches run plain after the watchdog turned
     #   speculation off
+    # session cache (zeros when it is off):
+    session_lookups: int = 0  # admissions that consulted the session store
+    session_parks: int = 0  # retiring slots parked host-side
+    session_hits: int = 0  # admissions served from a parked session
+    session_evictions: int = 0  # parked entries lost (capacity, TTL, invalid)
+    session_restored_pages: int = 0  # pool pages streamed back on hits
 
     @property
     def acceptance_rate(self) -> float:
         return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
+
+    @property
+    def session_hit_rate(self) -> float:
+        return self.session_hits / self.session_lookups if self.session_lookups else 0.0
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -420,6 +510,15 @@ class SlotStats:
     def decode_tok_s(self) -> float:
         """Tokens per second over the whole run, admissions included."""
         return self.tokens_out / self.wall_s if self.wall_s else 0.0
+
+    def to_json(self) -> dict:
+        """Every counter and the derived rates, JSON-serializable."""
+        d = dataclasses.asdict(self)
+        d.update(occupancy=self.occupancy, decode_tok_s=self.decode_tok_s,
+                 prefix_hit_rate=self.prefix_hit_rate,
+                 acceptance_rate=self.acceptance_rate,
+                 session_hit_rate=self.session_hit_rate)
+        return d
 
 
 class _PrefixNode:
@@ -559,14 +658,31 @@ class NGramDrafter:
 
 
 class _Active:
-    """One occupied slot: the request plus its generation state."""
+    """One occupied slot: the request plus its generation state.
 
-    __slots__ = ("req", "out", "done")
+    ``forced`` is a session resume's teacher-forced queue (the returning
+    turn's uncached suffix): while it is not empty the decode launches
+    still append to the row's cache, but each launch's argmax is replaced
+    on the host by the next forced token, and nothing is emitted. ``base``
+    re-anchors the host counter mirror (``SlotServer._counters``) of a row
+    whose cache did not come from prefilling its own prompt (a session
+    resume, or a preemption of one): ``(n_comp0, n_resid0, cached0,
+    out0)`` at the anchor."""
 
-    def __init__(self, req: Request, first_tok: int, eos_id: int | None):
+    __slots__ = ("req", "out", "done", "forced", "k0", "base")
+
+    def __init__(self, req: Request, first_tok: int | None, eos_id: int | None,
+                 forced=None, base=None):
         self.req = req
-        self.out = [first_tok]
-        self.done = (eos_id is not None and first_tok == eos_id) or req.max_new <= 1
+        self.forced: list[int] = list(forced) if forced else []
+        self.k0 = len(self.forced)  # forced tokens at the anchor
+        self.base = base
+        if first_tok is None:  # a resume: nothing emitted yet
+            self.out: list[int] = []
+            self.done = False
+        else:
+            self.out = [first_tok]
+            self.done = (eos_id is not None and first_tok == eos_id) or req.max_new <= 1
 
     @property
     def remaining(self) -> int:
@@ -575,7 +691,12 @@ class _Active:
     @property
     def cached_tokens(self) -> int:
         """Host mirror of the row's cache occupancy (n_comp + n_resid): the
-        prompt plus every generated token but the last (not yet appended)."""
+        prompt plus every generated token but the last (not yet appended).
+        A re-anchored row counts from its anchor: every drained forced
+        token and every emitted token is one append."""
+        if self.base is not None:
+            _, _, cached0, out0 = self.base
+            return cached0 + (self.k0 - len(self.forced)) + (len(self.out) - out0)
         return len(self.req.tokens) + len(self.out) - 1
 
 
@@ -609,20 +730,24 @@ class _PrefillTask:
 class SlotServer:
     """Continuous-batching scheduler over a fixed slot table.
 
-    Each step: (1) ADMIT - advance the pending admission by one bounded
-    prefill chunk, the last inserting the finished row into its claimed
-    slot (``prefill_chunk_pages = 0``: seat queue heads by one monolithic
-    prefill-insert each); (2) DECODE - one batched greedy launch of up to
+    Each step: (1) FAULTS and REAP - fire the fault plan's events for this
+    step, then retire cancelled and expired work wherever it is; (2) ADMIT
+    - advance the pending admission by one bounded prefill chunk, the last
+    inserting the finished row into its claimed slot
+    (``prefill_chunk_pages = 0``: seat queue heads by one monolithic
+    prefill-insert each); (3) DECODE - one batched greedy launch of up to
     ``decode_chunk`` steps over the whole table (free rows ride along,
-    masked); (3) RETIRE - rows that hit EOS or ``max_new`` record their
-    output and their slot is reset for the next admission. Per-request
-    greedy outputs equal a batch-size-1 ``Engine.generate`` run
-    (per-row state, per-row positions, row-independent attention; chunk
-    boundaries are exact resume points, ``models.layers.resume_attention``).
+    masked), retiring rows that hit EOS or ``max_new``. Per-request greedy
+    outputs equal a batch-size-1 ``Engine.generate`` run (per-row state,
+    per-row positions, row-independent attention; chunk boundaries are
+    exact resume points, ``models.layers.resume_attention``).
+
+    Requests carry a priority class: admission takes the per-class FIFO
+    head with the smallest (class lowered by aging, submit order).
 
     PAGED engines admit on FREE PAGES: each admitted request reserves its
     worst-case page count (``ceil(min(capacity, prompt + max_new) /
-    page_size)``) and admission blocks, FIFO order kept, while
+    page_size)``) and admission blocks, class and FIFO order kept, while
     reservations plus the watermark would overflow the pool.
 
     PREFIX-CACHE engines look up the longest page-aligned prompt prefix
@@ -637,47 +762,88 @@ class SlotServer:
     append and by its remaining tokens; a slot whose drafts all die waits
     a doubling number of steps before drafting again
     (``EngineConfig.spec_backoff``). ``straggler`` (default
-    ``StragglerMonitor()``) watches each decode launch's wall time; its
-    'exclude' verdict turns speculation off for the rest of the run.
+    ``StragglerMonitor()`` when speculating) watches each decode launch's
+    wall time; its 'exclude' verdict turns speculation off for the rest
+    of the run.
+
+    PREEMPTIVE engines (``EngineConfig.preempt``): when a head cannot seat
+    (no free slot, or too few pages after index eviction) a strictly
+    lower-class victim is swapped OUT: its compressed pages, residual and
+    counters go to a host ``SwapStore`` (``Engine.evacuate``; shared
+    prefix pages release their reference instead), and it requeues in its
+    original order with its tokens so far. On re-admission the row
+    streams back (``Engine.restore``, no forward pass) and decoding
+    resumes bitwise as if never interrupted. ``Request.cancel()`` and
+    ``deadline_ms`` retire work at the next step through the same paths,
+    and a ``distributed.fault.FaultPlan`` (``fault_plan``) drives all of
+    it deterministically.
+
+    SESSION-CACHE engines (``EngineConfig.session_cache``): a retiring row
+    is evacuated into a host ``SessionStore`` (``session_store``, default
+    one from the engine config) keyed by its token trace. A returning turn
+    whose prompt extends a parked trace restores the row with no forward
+    pass over it and ingests only its new suffix, teacher-forced through
+    the ordinary decode launches, so a hit is bitwise equal to never
+    having parked.
     """
 
     def __init__(self, engine: Engine, eos_id: int | None = None,
                  drafter: NGramDrafter | None = None,
-                 straggler: StragglerMonitor | None = None):
+                 fault_plan: FaultPlan | None = None,
+                 straggler: StragglerMonitor | None = None,
+                 session_store: SessionStore | None = None):
         if engine.cfg.input_mode != "tokens":
             raise ValueError(f"input_mode {engine.cfg.input_mode!r} is not "
                              "servable per slot")
         self.engine = engine
         self.eos_id = eos_id
-        spec = engine.ecfg.spec_decode
-        self._drafter = (drafter or NGramDrafter()) if spec else None
-        self._watchdog = (straggler or StragglerMonitor()) if spec else None
+        ecfg = engine.ecfg
+        self._drafter = (drafter or NGramDrafter()) if ecfg.spec_decode else None
+        self._watchdog = straggler if straggler is not None else (
+            StragglerMonitor() if ecfg.spec_decode else None)
         self._spec_degraded = False  # set once the watchdog says exclude
-        self._spec_backoff = [0] * engine.ecfg.max_batch
-        self._spec_cooldown = [0] * engine.ecfg.max_batch
-        self.n_slots = engine.ecfg.max_batch
+        self._spec_backoff = [0] * ecfg.max_batch
+        self._spec_cooldown = [0] * ecfg.max_batch
+        self.n_slots = ecfg.max_batch
         self.cache = None  # allocated on first admission
         self.slots: list[_Active | None] = [None] * self.n_slots
         self._ever_used = [False] * self.n_slots
         self._last_tok = np.zeros((self.n_slots,), np.int32)
-        self.queue: deque[Request] = deque()
+        self.queues: dict[int, deque[Request]] = {}  # class -> FIFO
         self.done: dict[int, Request] = {}
         self.stats = SlotStats(n_slots=self.n_slots)
         self._reserved: dict[int, int] = {}  # slot -> pages it may NEWLY pop
-        self._index = (PrefixIndex(engine.ecfg.page_size)
-                       if engine.ecfg.prefix_cache else None)
+        self._index = PrefixIndex(ecfg.page_size) if ecfg.prefix_cache else None
         self._slot_shared: dict[int, tuple[int, ...]] = {}  # slot -> mapped pages
         self._task: _PrefillTask | None = None  # in-flight chunked admission
+        self._swap = SwapStore() if ecfg.preempt else None
+        self._sessions: SessionStore | None = None
+        if ecfg.session_cache:
+            self._sessions = session_store if session_store is not None else SessionStore(
+                capacity_bytes=ecfg.session_cache_mb << 20, ttl_s=ecfg.session_ttl_s,
+                disk_dir=ecfg.session_disk_dir)
+        self._fault_rid = 1_000_000_000  # request ids of fault-made sessions
+        self._seq = 0  # global submit stamp (FIFO order within a class)
+        self._step_no = 0  # scheduler steps (the aging and fault clock)
+        self._faults = fault_plan
+        self._squeeze = 0  # pool pages a pool_squeeze fault holds back
+
+    @property
+    def queue(self) -> list[Request]:
+        """Every queued request: classes ascending, FIFO within each (a
+        view; submit through ``submit``)."""
+        return [r for p in sorted(self.queues) for r in self.queues[p]]
 
     # -- paged admission accounting ----------------------------------------
     @property
     def _pages_avail(self) -> int:
-        """Pool pages not spoken for: total minus the watermark, minus every
-        slot's reservation of pages it may newly pop, minus the pages the
-        prefix index pins (reclaimable on demand, ``_evict_to_fit``)."""
+        """Pool pages not spoken for: total minus the watermark and a
+        squeeze fault's hold-back, minus every slot's reservation of pages
+        it may newly pop, minus the pages the prefix index pins
+        (reclaimable on demand, ``_evict_to_fit``)."""
         total = self.engine.pack_cfg.pool_pages
         held = self._index.n_held if self._index is not None else 0
-        return (total - self.engine.ecfg.page_watermark
+        return (total - self.engine.ecfg.page_watermark - self._squeeze
                 - sum(self._reserved.values()) - held)
 
     def _pages_needed(self, req: Request) -> int:
@@ -687,18 +853,19 @@ class SlotServer:
         return cdiv(min(ecfg.capacity, len(req.tokens) + req.max_new),
                     ecfg.page_size)
 
-    def _fit_pages(self, need_new: int, protected: set[int]) -> bool:
-        """Whether ``need_new`` pages are reservable now, after evicting
-        cold index prefixes; a miss is one admission block (FIFO order is
-        kept: the head waits for a retirement)."""
-        if self._evict_to_fit(need_new, protected):
-            return True
-        self.stats.admission_blocks += 1
-        return False
+    def _fit_pages(self, head: Request, need_new: int, protected: set[int]) -> bool:
+        """Make ``need_new`` pages reservable for ``head``: evict cold index
+        prefixes first, then swap lower-class victims out; a miss is one
+        admission block (class and FIFO order kept: the head waits)."""
+        while not self._evict_to_fit(need_new, protected):
+            if not self._swap_out_one(head):
+                self.stats.admission_blocks += 1
+                return False
+        return True
 
     def _reserve(self, slot: int, req: Request, n_shared: int) -> None:
-        """Reserve the pages ``req`` may newly pop: a hit's shared pages
-        reserve none."""
+        """Reserve the pages ``req`` may newly pop: shared pages reserve
+        none."""
         if self.engine.ecfg.paged:
             self._reserved[slot] = self._pages_needed(req) - n_shared
             self.stats.pages_reserved_peak = max(self.stats.pages_reserved_peak,
@@ -713,8 +880,14 @@ class SlotServer:
         return self._index.lookup(req.tokens, max_m)
 
     def _live_shared(self) -> set[int]:
-        """Shared pages a live slot maps by reference."""
-        return {p for t in self._slot_shared.values() for p in t}
+        """Shared pages a live slot maps by reference, and those a
+        swapped-out request will map back on resume (its slot released its
+        references, so only the index pins them until it resumes or dies)."""
+        live = {p for t in self._slot_shared.values() for p in t}
+        if self._swap is not None:
+            for meta in self._swap.metas():
+                live.update(meta["shared"])
+        return live
 
     def _evict_to_fit(self, need_new: int, protected: set[int]) -> bool:
         """Evict index pages (LRU leaves first) until ``need_new`` pages
@@ -775,21 +948,6 @@ class SlotServer:
             self.stats.prefix_hits += 1
             self.stats.prefix_pages_shared += len(pages)
 
-    def _counters(self, act: _Active) -> tuple[int, int]:
-        """Host mirror of an occupied row's (n_comp, n_resid), exact with
-        no device read: prefill compresses every full block, then each
-        cached token appends one residual slot, flushing a block whenever
-        the residual is full at the append (a paged row stops flushing at
-        capacity, as ``core.cache.append_token`` does)."""
-        pack = self.engine.pack_cfg
-        S = len(act.req.tokens)
-        lb = (S // pack.block) * pack.block
-        r = S - lb + len(act.out) - 1  # as if no flush had fired
-        f = -(-(r - pack.residual) // pack.block) if r > pack.residual else 0
-        if self.engine.ecfg.paged:
-            f = min(f, (self.engine.ecfg.capacity - lb) // pack.block)
-        return lb + f * pack.block, r - f * pack.block
-
     def _check_invariants(self) -> None:
         """Debug mode (``EngineConfig.debug_invariants``): every layer's
         page ledger conserves references (free iff ref == 0, both ways).
@@ -811,6 +969,11 @@ class SlotServer:
     def submit(self, req: Request) -> None:
         if req.max_new < 1:
             raise ValueError(f"request {req.rid}: max_new must be >= 1")
+        if req.priority < 0:
+            raise ValueError(f"request {req.rid}: priority must be >= 0")
+        if req.deadline_ms is not None and req.deadline_ms <= 0:
+            # a deadline already past is a caller's bug, not traffic
+            raise ValueError(f"request {req.rid}: deadline_ms must be > 0")
         ecfg, pack = self.engine.ecfg, self.engine.pack_cfg
         # Paged engines only, as the reference: a dense row past capacity
         # overwrites its last block (``append_block`` clamps its start),
@@ -834,50 +997,307 @@ class SlotServer:
                 raise ValueError(f"request {req.rid} needs "
                                  f"{self._pages_needed(req)} pages but the "
                                  f"pool admits at most {most}")
-        self.queue.append(req)
+        req.t_submit = time.perf_counter()
+        req._seq = self._seq
+        self._seq += 1
+        req._enq_step = self._step_no
+        self.queues.setdefault(req.priority, deque()).append(req)
+
+    def _head(self) -> Request | None:
+        """The next request to admit: among the per-class FIFO heads, the
+        one with the smallest (effective class, submit order). Aging lowers
+        a waiting head's class by one every ``aging_steps`` steps, so a
+        flood of a higher class delays lower ones but never starves them;
+        0 is strict priority."""
+        ag = self.engine.ecfg.aging_steps
+        best, best_key = None, None
+        for p, q in self.queues.items():
+            if not q:
+                continue
+            h = q[0]
+            eff = max(0, p - (self._step_no - h._enq_step) // ag) if ag > 0 else p
+            key = (eff, h._seq)
+            if best_key is None or key < best_key:
+                best, best_key = h, key
+        return best
+
+    def _pop_head(self, head: Request) -> Request:
+        got = self.queues[head.priority].popleft()
+        assert got is head
+        return got
+
+    def _requeue(self, req: Request) -> None:
+        """Put a preempted or aborted request back in its class at its
+        ORIGINAL submit order."""
+        req.status = "queued"
+        req._enq_step = self._step_no
+        q = self.queues.setdefault(req.priority, deque())
+        pos = 0
+        while pos < len(q) and q[pos]._seq < req._seq:
+            pos += 1
+        q.insert(pos, req)
 
     @property
     def n_occupied(self) -> int:
         return sum(s is not None for s in self.slots)
 
     # -- retirement (the one path out of a slot) ----------------------------
-    def _release_slot(self, i: int) -> None:
-        """Free slot ``i``: the device row (paged: its pages) and its
-        page reservation."""
+    def _release_slot(self, i: int, free_pages: bool = True) -> None:
+        """Free slot ``i``: its drafter row, page reservation and shared
+        prefix mapping, and, unless an evacuation already returned its
+        pages, the device row. Every way out of a slot (EOS, max_new,
+        cancel, deadline, preemption, park) comes through here."""
         self.slots[i] = None
         if self._drafter is not None:
             self._drafter.drop(i)
-        self.cache = self.engine.free_slot(self.cache, i)
+        if free_pages:
+            self.cache = self.engine.free_slot(self.cache, i)
         self._reserved.pop(i, None)
         self._slot_shared.pop(i, None)  # its shared pages' refs went with it
         self._check_invariants()
 
-    def _retire_slot(self, i: int) -> Request:
+    def _retire_slot(self, i: int, reason: str = "done") -> Request:
+        """Finish slot ``i``'s request (reason: done | cancelled | expired
+        | parked) and free the slot. A natural or forced end of turn
+        (done, parked) parks the row in the session store when it is on;
+        cancelled and expired work is dropped."""
         act = self.slots[i]
         act.req.output = np.asarray(act.out, np.int32)
-        act.req.status = "done"
+        act.req.status = reason
         self.done[act.req.rid] = act.req
-        self._release_slot(i)
-        self.stats.completed += 1
+        parked = reason in ("done", "parked") and self._park_row(i)
+        # a parked row was evacuated: its pages are back in the pool
+        self._release_slot(i, free_pages=not parked)
+        if reason == "done":
+            self.stats.completed += 1
+        elif reason == "cancelled":
+            self.stats.cancelled += 1
+        elif reason == "expired":
+            self.stats.expired += 1
         return act.req
 
-    # -- admission ------------------------------------------------------------
-    def _claim(self):
-        """A free slot for the queue head, its prefix match (page ids,
-        perms; empty without a prefix cache) and, paged, room for its
-        page reservation; None while admission is blocked."""
-        if not self.queue or None not in self.slots:
+    def _evacuate(self, i: int, act: _Active):
+        """Evacuate slot ``i``'s row: (mini, n_pages, n_shared, shared
+        pages, (n_comp, n_resid)) from the host counter mirror."""
+        c, r = self._counters(act)
+        shared = tuple(self._slot_shared.get(i, ()))
+        n_pages = n_shared = 0
+        if self.engine.ecfg.paged:
+            n_pages = cdiv(c, self.engine.ecfg.page_size)
+            n_shared = len(shared)
+        self.cache, mini = self.engine.evacuate(self.cache, i, n_pages, n_shared)
+        return mini, n_pages, n_shared, shared, (c, r)
+
+    # -- session cache: park and resume --------------------------------------
+    def _park_row(self, i: int) -> bool:
+        """Park slot ``i``'s row in the session store at retirement, keyed
+        by its cached token trace: the first ``cached_tokens + 1`` tokens
+        of prompt + output (the +1 is the pending seed, not yet appended),
+        exact for a finished, a force-parked or a still-ingesting row.
+        Shared prefix pages release their references; their trie nodes are
+        kept so a resume can prove the index still holds the same pages.
+        True when the row was evacuated (release it without freeing)."""
+        if self._sessions is None or self.cache is None:
+            return False
+        act = self.slots[i]
+        trace = np.concatenate([np.asarray(act.req.tokens, np.int64),
+                                np.asarray(act.out, np.int64)])[:act.cached_tokens + 1]
+        nodes: list = []
+        if self._slot_shared.get(i) and self._index is not None:
+            parent = None
+            for chunk in self._index.chunks(trace)[:len(self._slot_shared[i])]:
+                parent = self._index.descend(parent, chunk)
+                assert parent is not None  # live shared pages are not evicted
+                nodes.append(parent)
+        mini, n_pages, n_shared, shared, counters = self._evacuate(i, act)
+        self._sessions.put(trace, mini, dict(
+            last_tok=int(self._last_tok[i]), n_pages=n_pages, n_shared=n_shared,
+            shared=shared, nodes=tuple(nodes), counters=counters))
+        self.stats.session_parks += 1
+        return True
+
+    def _session_valid(self, meta: dict) -> bool:
+        """A parked entry's shared prefix is servable iff the SAME trie
+        nodes still hold the SAME pages (parking holds no device
+        reference, so the index may have evicted the chain meanwhile;
+        evicted nodes never come back)."""
+        if self._index is None:
+            return False
+        node = None
+        for want, page in zip(meta["nodes"], meta["shared"]):
+            node = self._index.descend(node, want.chunk)
+            if node is not want or node.page != page:
+                return False
+        for n in meta["nodes"]:
+            self._index.touch(n)
+        return True
+
+    def _session_try(self, head: Request, slot: int) -> str:
+        """Serve ``head`` from a parked session: "hit" (popped and
+        restored into ``slot``), "blocked" (an entry matches but its pages
+        do not fit yet; it is kept and admission retries) or "miss"."""
+        if self._sessions is None or self.cache is None:
+            return "miss"
+        while True:
+            key = self._sessions.match(head.tokens)
+            if key is None:
+                return "miss"
+            meta = self._sessions.meta(key)
+            if meta["n_shared"] and not self._session_valid(meta):
+                self._sessions.drop(key)
+                continue
+            if self.engine.ecfg.paged and not self._fit_pages(
+                    head, self._pages_needed(head) - meta["n_shared"],
+                    set(meta["shared"])):
+                return "blocked"
+            req = self._pop_head(head)
+            mini, meta = self._sessions.take(key)
+            self.stats.session_lookups += 1
+            self._session_resume(req, slot, len(key) // 8, mini, meta)
+            return "hit"
+
+    def _session_resume(self, req: Request, i: int, trace_len: int, mini,
+                        meta: dict) -> None:
+        """Restore a parked row into slot ``i`` (its shared prefix mapped
+        back by reference; no forward pass) and queue the prompt's
+        uncached suffix for teacher-forced ingestion. The counter anchor
+        pins ``_counters`` to the parked row's exact (n_comp, n_resid)."""
+        self._reserve(i, req, meta["n_shared"])
+        self.cache = self.engine.restore(self.cache, i, mini, meta["shared"],
+                                         meta["n_pages"], meta["n_shared"])
+        if meta["shared"]:
+            self._slot_shared[i] = tuple(meta["shared"])
+        c0, r0 = meta["counters"]
+        forced = [int(t) for t in np.asarray(req.tokens)[trace_len:]]
+        self.slots[i] = _Active(req, None, self.eos_id, forced=forced,
+                                base=(c0, r0, trace_len - 1, 0))
+        req.status = "active"
+        self._last_tok[i] = meta["last_tok"]
+        self._spec_backoff[i] = self._spec_cooldown[i] = 0
+        if self._drafter is not None:
+            self._drafter.seed(i, [int(t) for t in np.asarray(req.tokens)[:trace_len]])
+        if self._ever_used[i]:
+            self.stats.slot_reuses += 1
+        self._ever_used[i] = True
+        self.stats.admitted += 1
+        self.stats.session_hits += 1
+        self.stats.session_restored_pages += meta["n_pages"] - meta["n_shared"]
+        self._check_invariants()
+
+    def _fault_resume(self, n: int) -> None:
+        """Submit up to ``n`` returning sessions built from the oldest
+        parked traces (a fixed 3-token suffix, request ids far above real
+        traffic); one that admission would refuse is skipped."""
+        if self._sessions is None:
+            return
+        for trace in self._sessions.traces(n):
+            toks = np.concatenate([trace, np.zeros((3,), np.int64)])
+            req = Request(rid=self._fault_rid, max_new=2, tokens=toks)
+            self._fault_rid += 1
+            try:
+                self.submit(req)
+            except ValueError:
+                continue
+
+    # -- preemption: swap out and resume --------------------------------------
+    def _swap_out_one(self, head: Request) -> bool:
+        """Swap ONE victim out to make room for ``head``. Victims are of a
+        strictly lower class (the raw priority: aging moves a head's turn,
+        not its right to preempt, so a victim never bounces back into its
+        preemptor); among them the lowest class with the most work left,
+        the lowest slot on ties. Its owned bytes go to the SwapStore, its
+        shared prefix pages release their references, and it requeues at
+        its original submit order."""
+        if self._swap is None:
+            return False
+        cand = [i for i in range(self.n_slots) if self.slots[i] is not None
+                and self.slots[i].req.priority > head.priority]
+        if not cand:
+            return False
+        i = max(cand, key=lambda j: (self.slots[j].req.priority,
+                                     self.slots[j].remaining, -j))
+        act = self.slots[i]
+        req = act.req
+        mini, n_pages, n_shared, shared, (c, r) = self._evacuate(i, act)
+        # the re-anchor and the forced queue make the swap exact for any
+        # row, a session resume preempted mid-ingestion included
+        self._swap.put(req.rid, mini, dict(
+            out=list(act.out), last_tok=int(self._last_tok[i]), n_pages=n_pages,
+            n_shared=n_shared, shared=shared, forced=list(act.forced),
+            base=(c, r, act.cached_tokens, len(act.out))))
+        req.n_preempts += 1
+        self._requeue(req)
+        self._release_slot(i, free_pages=False)  # the evacuation freed the row
+        self.stats.preemptions += 1
+        self.stats.swapped_pages += n_pages - n_shared
+        return True
+
+    def _resume(self, req: Request, i: int) -> None:
+        """Re-admit a swapped-out request into slot ``i``: its pages stream
+        back (shared prefix mapped by reference) and it continues from its
+        saved seed token. No forward pass runs: the seed was never cached,
+        as if the preemption had not happened."""
+        mini, meta = self._swap.pop(req.rid)
+        self._reserve(i, req, meta["n_shared"])
+        self.cache = self.engine.restore(self.cache, i, mini, meta["shared"],
+                                         meta["n_pages"], meta["n_shared"])
+        if meta["shared"]:
+            self._slot_shared[i] = tuple(meta["shared"])
+        act = _Active(req, None, self.eos_id, forced=meta["forced"], base=meta["base"])
+        act.out = list(meta["out"])
+        self.slots[i] = act
+        req.status = "active"
+        self._last_tok[i] = meta["last_tok"]
+        self._spec_backoff[i] = self._spec_cooldown[i] = 0
+        self._ever_used[i] = True
+        if self._drafter is not None:
+            # the drafter mirrors the CACHED sequence and the pending seed:
+            # a row preempted mid-ingestion has seen a prompt prefix
+            n_seen = act.cached_tokens + 1 - len(act.out)
+            self._drafter.seed(i, [int(t) for t in np.asarray(req.tokens)[:n_seen]]
+                               + list(act.out))
+        self.stats.restored_pages += meta["n_pages"] - meta["n_shared"]
+        self._check_invariants()
+
+    def _seat(self, head: Request) -> int | None:
+        """A free slot for ``head``, swapping lower-class victims out one
+        at a time when preemption is on and the table is full."""
+        while None not in self.slots:
+            if not self._swap_out_one(head):
+                return None
+        return self.slots.index(None)
+
+    def _try_resume(self, head: Request, slot: int) -> bool | None:
+        """Resume ``head`` into ``slot`` if it is swapped out: True when
+        resumed, False when its pages do not fit yet, None when it is not
+        swapped out."""
+        if self._swap is None or head.rid not in self._swap:
             return None
-        head = self.queue[0]
+        meta = self._swap.meta(head.rid)
+        if self.engine.ecfg.paged and not self._fit_pages(
+                head, self._pages_needed(head) - meta["n_shared"], set(meta["shared"])):
+            return False
+        self._resume(self._pop_head(head), slot)
+        return True
+
+    # -- admission ------------------------------------------------------------
+    def _claim(self, head: Request, slot: int):
+        """Cold admission of ``head`` into ``slot``: its prefix match and,
+        paged, room for its page reservation. Returns (request, pages,
+        perms), the request popped and reserved, or None while blocked."""
         pages, perms = [], None
         if self._index is not None and self.cache is not None:
             pages, perms = self._match(head)
         if self.engine.ecfg.paged and not self._fit_pages(
-                self._pages_needed(head) - len(pages), set(pages)):
+                head, self._pages_needed(head) - len(pages), set(pages)):
             return None
+        req = self._pop_head(head)
+        if self._sessions is not None:
+            self.stats.session_lookups += 1  # a cold admission is a miss
         if self.cache is None:
             self.cache = self.engine.alloc_slot_cache()
-        return self.slots.index(None), pages, perms
+        self._reserve(slot, req, len(pages))
+        return req, pages, perms
 
     def _insert(self, req: Request, i: int, finished: list[Request],
                 pages=(), perms=None) -> None:
@@ -890,8 +1310,7 @@ class SlotServer:
             self._slot_shared[i] = tuple(pages)
             self._register(req, i)
         else:
-            logits, self.cache = self.engine.insert_request(self.cache, i,
-                                                            req.tokens)
+            logits, self.cache = self.engine.insert_request(self.cache, i, req.tokens)
         self._seated(req, i, logits, finished)
 
     def _seated(self, req: Request, i: int, logits, finished: list[Request]):
@@ -902,12 +1321,28 @@ class SlotServer:
 
     def _admit(self) -> list[Request]:
         """Monolithic admission sweep (``prefill_chunk_pages == 0``): seat
-        queue heads until the queue drains or admission blocks."""
+        queue heads (swapped-out ones resume, parked sessions restore,
+        fresh ones prefill in one dispatch) until the queue drains or
+        admission blocks."""
         finished: list[Request] = []
-        while (claim := self._claim()) is not None:
-            i, pages, perms = claim
-            req = self.queue.popleft()
-            self._reserve(i, req, len(pages))
+        while (head := self._head()) is not None:
+            i = self._seat(head)
+            if i is None:
+                break
+            resumed = self._try_resume(head, i)
+            if resumed is not None:
+                if not resumed:
+                    break
+                continue
+            hit = self._session_try(head, i)
+            if hit == "hit":
+                continue
+            if hit == "blocked":
+                break
+            claim = self._claim(head, i)
+            if claim is None:
+                break
+            req, pages, perms = claim
             self._insert(req, i, finished, pages, perms)
         return finished
 
@@ -919,6 +1354,9 @@ class SlotServer:
         if self._drafter is not None:
             # prompt + the first token (the next launch's seed)
             self._drafter.seed(i, list(np.asarray(req.tokens)) + [tok])
+        now = time.perf_counter()
+        req.t_first = now
+        req.token_times.append(now)
         self.stats.admitted += 1
         self.stats.tokens_out += 1
         if self._ever_used[i]:
@@ -926,18 +1364,27 @@ class SlotServer:
         self._ever_used[i] = True
 
     def _start_task(self, finished: list[Request]) -> _PrefillTask | None:
-        """Claim a slot (and pages) for the queue head and build its
-        chunked admission; None while blocked. Without a prefix cache, a
-        prompt within one chunk budget is admitted here by the monolithic
-        insert (one dispatch either way) and leaves no task; with one,
+        """Seat the queue head and build its chunked admission; None while
+        blocked, or when it completed here: a swapped-out head resumes and
+        a parked session restores (one scatter each, no prefill), and,
+        without a prefix cache, a prompt within one chunk budget takes the
+        monolithic insert (one dispatch either way). With a prefix cache
         every admission runs its page segments (a cold one calibrates on
         its first page, which is what makes a later hit exact)."""
-        claim = self._claim()
+        head = self._head()
+        if head is None:
+            return None
+        slot = self._seat(head)
+        if slot is None:
+            return None
+        if self._try_resume(head, slot) is not None:
+            return None
+        if self._session_try(head, slot) != "miss":
+            return None  # a hit restored; a blocked entry waits for pages
+        claim = self._claim(head, slot)
         if claim is None:
             return None
-        slot, pages, perms = claim
-        req = self.queue.popleft()
-        self._reserve(slot, req, len(pages))
+        req, pages, perms = claim
         S = len(req.tokens)
         if self._index is not None:
             self._count_lookup(pages)
@@ -996,18 +1443,125 @@ class SlotServer:
     def _chunk_plan(self) -> tuple[int, int | None]:
         """(n_steps, n_bucket) for the next decode launch: no row may
         overshoot its ``max_new`` inside a chunk, and the bucket bounds
-        every row's n_comp through the whole chunk."""
+        every row's n_comp through the whole chunk. While a row ingests
+        forced tokens the launch takes one step (its token is replaced on
+        the host after each)."""
         occupied = [a for a in self.slots if a is not None]
         n_steps = max(1, min(self.engine.ecfg.decode_chunk,
                              min(a.remaining for a in occupied)))
+        if any(a.forced for a in occupied):
+            n_steps = 1
         n_max = max(a.cached_tokens for a in occupied) + n_steps
         return n_steps, self.engine.bucket_for(n_max)
 
+    # -- cancellation, deadlines, faults --------------------------------------
+    def _finish_dead(self, req: Request, why: str, finished: list[Request]) -> None:
+        """Retire a request that is not in a slot (queued, swapped out or
+        mid-prefill): its output is what it had generated before a swap-out
+        (empty otherwise)."""
+        out: list[int] = []
+        if self._swap is not None and req.rid in self._swap:
+            out = self._swap.meta(req.rid)["out"]
+            self._swap.drop(req.rid)
+        req.output = np.asarray(out, np.int32)
+        req.status = why
+        self.done[req.rid] = req
+        if why == "cancelled":
+            self.stats.cancelled += 1
+        else:
+            self.stats.expired += 1
+        finished.append(req)
+
+    def _abort_task(self) -> None:
+        """Drop the in-flight chunked admission at its chunk boundary. It
+        holds no device pages (a plain task until its final chunk, a prefix
+        task until ``prefix_chunk_finish``), so only its reservation goes
+        back."""
+        t, self._task = self._task, None
+        self._reserved.pop(t.slot, None)
+        self._check_invariants()
+
+    def _reap(self, finished: list[Request]) -> None:
+        """Honour ``cancel()`` and ``deadline_ms`` at the top of the step,
+        before any new work launches, for queued, swapped-out,
+        mid-prefill and decoding requests alike."""
+        now = time.perf_counter()
+
+        def dead(req: Request) -> str | None:
+            if req.cancelled:
+                return "cancelled"
+            if req.deadline_ms is not None and (now - req.t_submit) * 1e3 > req.deadline_ms:
+                return "expired"
+            return None
+
+        for q in self.queues.values():
+            for req in [r for r in q if dead(r)]:
+                q.remove(req)
+                self._finish_dead(req, dead(req), finished)
+        if self._task is not None and dead(self._task.req):
+            req = self._task.req
+            self._abort_task()
+            self._finish_dead(req, dead(req), finished)
+        for i in range(self.n_slots):
+            act = self.slots[i]
+            if act is not None and (why := dead(act.req)) is not None:
+                finished.append(self._retire_slot(i, why))
+
+    def _fault_victims(self, n: int) -> list[Request]:
+        """The cancel and deadline storms' victims: occupied slots
+        ascending, then queued requests in submit order, then the in-flight
+        prefill."""
+        out = [a.req for a in self.slots if a is not None][:n]
+        queued = sorted((r for q in self.queues.values() for r in q), key=lambda r: r._seq)
+        out += queued[:n - len(out)]
+        if len(out) < n and self._task is not None:
+            out.append(self._task.req)
+        return out
+
+    def _apply_faults(self, finished: list[Request]) -> None:
+        """Fire this step's scheduled faults (``distributed.fault.
+        FaultPlan``). They act through the seams real traffic uses (cancel
+        flags, deadlines, requeues, parks), so every invariant the
+        scheduler keeps must survive them."""
+        if self._faults is None:
+            return
+        for ev in self._faults.at(self._step_no):
+            self._faults.fired.append(ev)
+            n = max(1, int(ev.arg))
+            if ev.kind == "pool_squeeze":
+                self._squeeze = max(0, int(ev.arg))
+            elif ev.kind in ("cancel", "deadline"):
+                for req in self._fault_victims(n):
+                    if ev.kind == "cancel":
+                        req.cancel()
+                    else:
+                        req.deadline_ms = 1e-9  # expired at the next reap
+            elif ev.kind == "chunk_abort":
+                if self._task is not None:
+                    req = self._task.req
+                    self._abort_task()
+                    self._requeue(req)  # its prefill restarts
+            elif ev.kind == "straggler":
+                self._observe_launch(float(ev.arg))
+            elif ev.kind == "park":
+                # a voluntary end of turn mid-generation
+                for i in [i for i, a in enumerate(self.slots) if a is not None][:n]:
+                    finished.append(self._retire_slot(i, "parked"))
+            elif ev.kind == "resume":
+                self._fault_resume(n)
+            elif ev.kind == "session_expire":
+                if self._sessions is not None:
+                    self._sessions.expire_now(n)
+
     def step(self) -> list[Request]:
-        """Admit (one chunk, or a monolithic sweep), then one decode
-        launch, then retire. Returns the requests finished now."""
+        """Fire faults and reap, admit (one chunk, or a monolithic sweep),
+        then one decode launch, retiring finished rows. Returns the
+        requests finished now."""
         t0 = time.perf_counter()
+        self._step_no += 1
         finished: list[Request] = []
+        self._apply_faults(finished)
+        self._reap(finished)
         if self.engine.ecfg.prefill_chunk_pages > 0:
             self._advance_task(finished)
         else:
@@ -1023,6 +1577,8 @@ class SlotServer:
             dt = time.perf_counter() - t_dec
             self.stats.decode_s += dt
             self._observe_launch(dt)
+        if self._sessions is not None:  # the store's own eviction counts
+            self.stats.session_evictions = self._sessions.evictions + self._sessions.expired
         self.stats.wall_s += time.perf_counter() - t0
         return finished
 
@@ -1043,10 +1599,13 @@ class SlotServer:
         else:
             self._decode_single(n_bucket, finished)
 
-    def _emit(self, i: int, t: int) -> bool:
+    def _emit(self, i: int, t: int, now: float) -> bool:
         """Record token ``t`` for slot ``i``; True once the row is done."""
         act = self.slots[i]
         act.out.append(t)
+        if act.req.t_first is None:  # a session hit's first real token
+            act.req.t_first = now
+        act.req.token_times.append(now)
         self._last_tok[i] = t
         self.stats.tokens_out += 1
         if self._drafter is not None:
@@ -1055,18 +1614,30 @@ class SlotServer:
             len(act.out) >= act.req.max_new
         return act.done
 
+    def _ingest(self, i: int) -> None:
+        """Teacher-forced ingestion (a session resume): the launch appended
+        the previous token; the next one is the known prompt token, not
+        the argmax, and nothing is emitted."""
+        t = self.slots[i].forced.pop(0)
+        self._last_tok[i] = t
+        if self._drafter is not None:
+            self._drafter.extend(i, (t,))
+
     def _decode_single(self, n_bucket: int | None, finished: list[Request]):
         """Per-token launch (decode_chunk = 1)."""
         logits, self.cache = self.engine.decode(self.cache, self._last_tok[:, None],
                                                 n_bucket)
         nxt = torch.argmax(logits, -1).cpu().numpy()
+        now = time.perf_counter()
         self.stats.decode_steps += 1
         self.stats.chunk_launches += 1
         for i, act in enumerate(self.slots):
             if act is None:
                 continue
             self.stats.occupied_slot_steps += 1
-            if self._emit(i, int(nxt[i])):
+            if act.forced:
+                self._ingest(i)
+            elif self._emit(i, int(nxt[i]), now):
                 finished.append(self._retire_slot(i))
         if self.n_occupied < self.n_slots:
             # free rows got a junk append this step: re-zero their counters
@@ -1077,24 +1648,51 @@ class SlotServer:
                       finished: list[Request]):
         """Multi-step launch: up to ``n_steps`` tokens per row. Tokens a
         row produces past its own EOS are discarded (rows are independent);
-        ``decode_steps`` re-zeroes free rows after every step."""
+        ``decode_steps`` re-zeroes free rows after every step. A row that
+        ingests forced tokens takes one (the plan's n_steps is 1 then)."""
         active = [a is not None for a in self.slots]
         toks, n_exec, self.cache = self.engine.decode_chunk(
             self.cache, self._last_tok[:, None], active, n_steps, self.eos_id,
             n_bucket)
+        now = time.perf_counter()
         self.stats.chunk_launches += 1
         self.stats.decode_steps += n_exec
         self.stats.occupied_slot_steps += n_exec * self.n_occupied
         for i, act in enumerate(self.slots):
             if act is None:
                 continue
+            if act.forced:
+                if n_exec:
+                    self._ingest(i)
+                continue
             for s in range(n_exec):
-                if self._emit(i, int(toks[s, i])):
+                if self._emit(i, int(toks[s, i]), now):
                     break
             if act.done:
                 finished.append(self._retire_slot(i))
 
     # -- speculative decode --------------------------------------------------
+    def _counters(self, act: _Active) -> tuple[int, int]:
+        """Host mirror of an occupied row's (n_comp, n_resid), exact with
+        no device read: prefill compresses every full block, then each
+        cached token appends one residual slot, flushing a block whenever
+        the residual is full at the append (a paged row stops flushing at
+        capacity, as ``core.cache.append_token`` does). A re-anchored row
+        (a session resume, or a preemption of one) starts from its
+        anchor's exact counters; the flush count is anchor-independent."""
+        pack = self.engine.pack_cfg
+        if act.base is not None:
+            lb, r0, cached0, _ = act.base
+            r = r0 + (act.cached_tokens - cached0)
+        else:
+            S = len(act.req.tokens)
+            lb = (S // pack.block) * pack.block
+            r = S - lb + len(act.out) - 1  # as if no flush had fired
+        f = -(-(r - pack.residual) // pack.block) if r > pack.residual else 0
+        if self.engine.ecfg.paged:
+            f = min(f, (self.engine.ecfg.capacity - lb) // pack.block)
+        return lb + f * pack.block, r - f * pack.block
+
     def _post_seed(self, act: _Active) -> tuple[int, int]:
         """The row's (n_comp, n_resid) after the next seed append, from the
         host mirror: the seed flushes a block when the residual is full (a
@@ -1115,8 +1713,9 @@ class SlotServer:
         through ``lens``. A row's drafts are capped by its residual
         headroom after the seed append (a window never crosses a flush or
         a page pop, ``core.cache.append_window``) and by ``remaining - 1``
-        (emission never overshoots ``max_new``). A row in backoff sits the
-        pass out, seed only, and its cooldown ticks down."""
+        (emission never overshoots ``max_new``). A row that ingests forced
+        tokens rides seed-only (its next token is known); a row in backoff
+        sits the pass out, seed only, and its cooldown ticks down."""
         ecfg = self.engine.ecfg
         w = ecfg.spec_k + 1
         toks = np.zeros((self.n_slots, w), np.int32)
@@ -1126,6 +1725,8 @@ class SlotServer:
             if act is None:
                 continue
             toks[i, 0] = self._last_tok[i]
+            if act.forced:
+                continue
             if self._spec_cooldown[i] > 0:
                 self._spec_cooldown[i] -= 1
                 continue
@@ -1146,7 +1747,8 @@ class SlotServer:
         """Speculative launch: every row's drafts verified by one pass; the
         accepted prefix commits by a counter advance and rejected drafts
         die past ``n_resid``. A row emits its accepted drafts and the
-        model's own next token, each what plain decode would emit."""
+        model's own next token, each what plain decode would emit; a row
+        that ingests forced tokens takes its next one instead."""
         plan = self._plan_spec()
         if plan is None:
             self._decode_plain(finished)
@@ -1159,6 +1761,7 @@ class SlotServer:
         active = [s is not None for s in self.slots]
         hat, n_accept, self.cache = self.engine.decode_verify(
             self.cache, toks, lens, active, n_bucket)
+        now = time.perf_counter()
         ecfg = self.engine.ecfg
         self.stats.decode_steps += 1
         self.stats.chunk_launches += 1
@@ -1167,6 +1770,9 @@ class SlotServer:
             if act is None:
                 continue
             self.stats.occupied_slot_steps += 1
+            if act.forced:
+                self._ingest(i)
+                continue
             m, kb = int(n_accept[i]), int(lens[i]) - 1
             self.stats.spec_drafted += kb
             self.stats.spec_accepted += m
@@ -1178,7 +1784,7 @@ class SlotServer:
                 else:
                     self._spec_backoff[i] = 0
             for j in range(m + 1):
-                if self._emit(i, int(hat[i, j])):
+                if self._emit(i, int(hat[i, j]), now):
                     break  # tokens past EOS or max_new are junk
         for i, act in enumerate(self.slots):
             if act is not None and act.done:

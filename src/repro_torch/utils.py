@@ -30,24 +30,144 @@ def bits_required(rng: torch.Tensor) -> torch.Tensor:
 
 
 def tree_bytes(obj) -> int:
-    """Bytes held by every tensor reachable through dataclasses, lists,
-    tuples and dicts (each tensor counted once)."""
+    """Bytes held by every tensor of a tree (``tree_flatten``), each
+    tensor counted once."""
+    tensors = {id(x): x for x in tree_flatten(obj)[0] if isinstance(x, torch.Tensor)}
+    return sum(leaf_nbytes(x) for x in tensors.values())
+
+
+# ---------------------------------------------------------------------------
+# Trees: nested dataclasses, lists, tuples and dicts of tensors (the torch
+# counterpart of ``jax.tree_util`` for this package's caches)
+# ---------------------------------------------------------------------------
+
+
+def _is_static(x) -> bool:
+    """A dataclass field value carried in the structure, not as a leaf:
+    anything but None, a tensor, an array, a container or a mutable
+    dataclass (frozen dataclasses such as configs and specs are static)."""
     import dataclasses
 
-    seen: set[int] = set()
+    import numpy as np
 
-    def walk(x) -> int:
-        if isinstance(x, torch.Tensor):
-            if id(x) in seen:
-                return 0
-            seen.add(id(x))
-            return x.numel() * x.element_size()
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            return sum(walk(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if x is None or isinstance(x, (torch.Tensor, np.ndarray, list, tuple, dict)):
+        return False
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return x.__dataclass_params__.frozen
+    return True
+
+
+class TreeDef:
+    """The structure of a flattened tree: ``unflatten(leaves)`` rebuilds
+    it, ``str`` is a deterministic fingerprint of it (class names, field
+    names and static values; no shapes)."""
+
+    def __init__(self, node):
+        self.node = node
+
+    def __repr__(self) -> str:
+        return f"TreeDef({self._text(self.node)})"
+
+    @classmethod
+    def _text(cls, node) -> str:
+        kind = node[0]
+        if kind in ("*", "None"):
+            return kind
+        if kind in ("list", "tuple"):
+            return f"{kind}[{', '.join(cls._text(c) for c in node[1])}]"
+        if kind == "dict":
+            return "dict{" + ", ".join(f"{k!r}: {cls._text(c)}"
+                                       for k, c in zip(node[1], node[2])) + "}"
+        _, typ, static, kids = node
+        parts = [f"{k}={v!r}" for k, v in static.items()]
+        parts += [f"{k}: {cls._text(c)}" for k, c in kids]
+        return f"{typ.__qualname__}({', '.join(parts)})"
+
+    def unflatten(self, leaves):
+        it = iter(leaves)
+        out = self._build(self.node, it)
+        if next(it, None) is not None:
+            raise ValueError("more leaves than the structure holds")
+        return out
+
+    @classmethod
+    def _build(cls, node, it):
+        kind = node[0]
+        if kind == "*":
+            return next(it)
+        if kind == "None":
+            return None
+        if kind in ("list", "tuple"):
+            seq = [cls._build(c, it) for c in node[1]]
+            return seq if kind == "list" else tuple(seq)
+        if kind == "dict":
+            return {k: cls._build(c, it) for k, c in zip(node[1], node[2])}
+        _, typ, static, kids = node
+        return typ(**static, **{k: cls._build(c, it) for k, c in kids})
+
+
+def tree_flatten(tree) -> tuple[list, TreeDef]:
+    """(leaves in a fixed order, structure). Leaves are tensors, arrays and
+    the scalars of lists, tuples and dicts; None holds no leaf; dict keys
+    go in sorted order."""
+    import dataclasses
+
+    leaves: list = []
+
+    def walk(x):
+        if x is None:
+            return ("None",)
         if isinstance(x, (list, tuple)):
-            return sum(walk(v) for v in x)
+            return ("list" if isinstance(x, list) else "tuple", [walk(v) for v in x])
         if isinstance(x, dict):
-            return sum(walk(v) for v in x.values())
-        return 0
+            keys = sorted(x)
+            return ("dict", keys, [walk(x[k]) for k in keys])
+        if dataclasses.is_dataclass(x) and not isinstance(x, type) \
+                and not x.__dataclass_params__.frozen:
+            static, kids = {}, []
+            for f in dataclasses.fields(x):
+                v = getattr(x, f.name)
+                if _is_static(v):
+                    static[f.name] = v
+                else:
+                    kids.append((f.name, walk(v)))
+            return ("dataclass", type(x), static, kids)
+        leaves.append(x)
+        return ("*",)
 
-    return walk(obj)
+    return leaves, TreeDef(walk(tree))
+
+
+def tree_map(fn, tree):
+    """``tree`` with every leaf replaced by ``fn(leaf)``."""
+    leaves, treedef = tree_flatten(tree)
+    return treedef.unflatten([fn(x) for x in leaves])
+
+
+def leaf_nbytes(x) -> int:
+    """Bytes of one leaf (a tensor, an array or a scalar)."""
+    import numpy as np
+
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return np.asarray(x).nbytes
+
+
+def to_host(tree):
+    """A host copy of every tensor and array of ``tree`` (a copy even when
+    a tensor already lies on the CPU: the caller's buffers may be reused)."""
+    import numpy as np
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to("cpu", copy=True)
+        if isinstance(x, np.ndarray):
+            return x.copy()
+        return x
+
+    return tree_map(copy, tree)
+
+
+def to_device(tree, device):
+    """Every tensor of ``tree`` on ``device`` (no copy where it is already)."""
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)

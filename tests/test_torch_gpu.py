@@ -734,3 +734,216 @@ def test_spec_serving_equals_plain_on_cuda(cuda, paged):
     assert (k5, k2) == (want, 0) if paged else (k2, k5) == (want, 0)
     for i in a.done:
         np.testing.assert_array_equal(a.done[i].output, b.done[i].output)
+
+
+# ---------------------------------------------------------------------------
+# preemption and sessions on the card
+# ---------------------------------------------------------------------------
+
+
+def _leaves_equal(a, b) -> bool:
+    from repro_torch.utils import tree_flatten
+
+    xs, ys = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.cpu().view(torch.uint8), y.cpu().view(torch.uint8))
+        for x, y in zip(xs, ys))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_evacuate_restore_bitwise_on_cuda(cuda, paged):
+    """Row 1 (1000 tokens) evacuated to host memory, another prompt
+    admitted into its slot (paged: onto the pages it freed), the row
+    restored into slot 2 (paged: other physical pages): K2 (dense) or K5
+    (paged) gives the row's partials bitwise as before the evacuation, and
+    evacuating it again gives the same mini bitwise."""
+    from repro_torch.utils import to_device, to_host
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    spec = tt.TierSpec((2, 4, 8), (32, 64, 32), 8)
+    cfg = tc.PackKVConfig(k_spec_static=spec, v_spec_static=spec, paged=paged, page_size=256)
+    cache = tc.alloc_layer_cache(cfg, 3, 4, 128, 1024, device=cuda)
+    kv = lambda n: torch.randn((4, n, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    for r, n in enumerate((700, 1000, 300)):
+        tc.insert_prefill(cache, r, kv(n), kv(n))
+    q = torch.randn((3, 4, 128), generator=gen, device=cuda)
+
+    def attend():
+        if paged:
+            return fused_packed_attention_paged(q, cache.k, cache.v, cache.pages.page_table,
+                                                cache.n_comp, 1024, 0.1, page_size=256)
+        return fused_packed_attention(q, cache.k, cache.v, cache.n_comp, 0.1)
+
+    before = [x.clone() for x in attend()]
+    q[2] = q[1]
+    n_pages = 4 if paged else 0
+    old_pages = cache.pages.page_table[1, :4].tolist() if paged else None
+    _, mini = tc.evacuate_row(cache, 1, n_pages)
+    host = to_host(mini)
+    tc.evacuate_row(cache, 2, 2 if paged else 0)
+    tc.insert_prefill(cache, 1, kv(900), kv(900))
+    tc.restore_row(cache, 2, to_device(host, cuda), None, n_pages)
+    after = attend()
+    torch.cuda.synchronize()
+    for b, a in zip(before, after):
+        assert torch.equal(b[1], a[2])
+    if paged:
+        assert cache.pages.page_table[2, :4].tolist() != old_pages
+    _, again = tc.evacuate_row(cache, 2, n_pages)
+    assert _leaves_equal(again, host)
+
+
+@pytest.mark.gpu
+def test_save_load_mini_of_a_card_mini(cuda, tmp_path):
+    """A card mini (every leaf kind, bf16 residuals) saved and loaded
+    back through the session store's disk serializers is bitwise equal."""
+    from repro_torch.checkpoint import load_mini, save_mini
+    from repro_torch.utils import tree_flatten
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    spec = tt.TierSpec((2, 4, 8), (32, 64, 32), 8)
+    cfg = tc.PackKVConfig(k_spec_static=spec, v_spec_static=spec, paged=True, page_size=256)
+    cache = tc.alloc_layer_cache(cfg, 2, 4, 128, 1024, device=cuda)
+    kv = torch.randn((4, 600, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    tc.insert_prefill(cache, 0, kv, kv)
+    _, mini = tc.evacuate_row([cache], 0, 3)
+    path = save_mini(str(tmp_path / "m"), mini)
+    back, _ = load_mini(path, tree_flatten(mini)[1])
+    assert _leaves_equal(back, mini)
+
+
+@pytest.mark.gpu
+def test_decode_chunk_one_step_equals_decode_at_llama2_width(cuda):
+    """A teacher-forced ingestion step is a one-step decode_chunk; it must
+    run the ops of a plain decode: at llama2-7b's width (2 of its 32
+    layers), the token and every cache byte bitwise equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.utils import tree_map
+
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=2)
+    params = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(3), cfg)
+    eng = Engine(cfg, params, tc.PackKVConfig(),
+                 EngineConfig(capacity=2048, max_batch=4, decode_chunk=8, prefill_chunk_pages=0))
+    cache = eng.alloc_slot_cache()
+    rng = np.random.default_rng(2)
+    toks = np.zeros((4, 1), np.int32)
+    for i, n in enumerate((700, 1000, 260)):
+        lg, cache = eng.insert_request(cache, i, rng.integers(0, cfg.vocab, n))
+        toks[i, 0] = int(torch.argmax(lg))
+    active = [True, True, True, False]
+    n_bucket = eng.bucket_for(1001)
+    a = tree_map(torch.clone, cache)
+    lg, a = eng.decode(a, toks, n_bucket)
+    a = eng.mask_free(a, active)
+    got, n_exec, b = eng.decode_chunk(cache, toks, active, 1, None, n_bucket)
+    assert n_exec == 1
+    np.testing.assert_array_equal(got[0, :3], torch.argmax(lg, -1).cpu().numpy()[:3])
+    assert _leaves_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_preempt_and_session_equal_controls_on_cuda(cuda, paged):
+    """The smoke config on the card: a class-0 arrival swaps a class-1 row
+    out and every request equals the preempt-off control; a two-turn
+    conversation's session hit equals the hand-driven chain on a
+    session-off engine (the same max_batch and spec_k); K2 (dense) or K5
+    (paged) launched once a layer and decode step and the other kernel
+    never."""
+    import dataclasses
+
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    cfg, _, params = _smoke_model(cuda)
+    ecfg = EngineConfig(capacity=512, max_batch=2, calib_tokens=128, decode_chunk=4,
+                        bucket_unit=64, paged=paged, page_size=128, debug_invariants=paged)
+    base = Engine(cfg, params, tc.PackKVConfig(), ecfg)
+    pre = Engine(cfg, params, base.pack_cfg, dataclasses.replace(
+        ecfg, calibrate=False, preempt=True, session_cache=True))
+    r = np.random.default_rng(11)
+    sys_p = r.integers(0, cfg.vocab, 256)
+    reqs = lambda: [Request(rid=i, max_new=40, priority=1, tokens=np.concatenate(
+        [sys_p, np.random.default_rng(i).integers(0, cfg.vocab, 40 + 13 * i)]))
+        for i in range(2)] + [Request(rid=2, max_new=6, tokens=np.arange(100) % cfg.vocab)]
+
+    def launches(srv, drive=None):
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        steps0 = srv.stats.decode_steps
+        (drive or srv.run)()
+        k2, k5 = fused_packed_attention.launches, fused_packed_attention_paged.launches
+        want = cfg.n_layers * (srv.stats.decode_steps - steps0)
+        assert (k5, k2) == (want, 0) if paged else (k2, k5) == (want, 0)
+
+    srv = SlotServer(pre)
+    low_a, low_b, hi = reqs()
+
+    def arrive_late():
+        srv.submit(low_a)
+        srv.submit(low_b)
+        for _ in range(8):
+            srv.step()
+        srv.submit(hi)
+        srv.run()
+
+    launches(srv, arrive_late)
+    assert srv.stats.preemptions >= 1 and srv.stats.session_parks == 3
+    ctl = SlotServer(base)
+    for q in reqs():
+        ctl.submit(q)
+    launches(ctl)
+    for rid in ctl.done:
+        np.testing.assert_array_equal(srv.done[rid].output, ctl.done[rid].output)
+    # a conversation of two turns against the uninterrupted chain
+    prompt, ext = r.integers(0, cfg.vocab, 300), r.integers(0, cfg.vocab, 5)
+    srv.submit(Request(rid=3, max_new=8, tokens=prompt))
+    launches(srv)
+    out1 = list(srv.done[3].output)
+    chunks = srv.stats.prefill_chunks
+    srv.submit(Request(rid=4, max_new=8, tokens=np.concatenate([prompt, out1, ext])))
+    launches(srv)
+    assert srv.stats.session_hits == 1 and srv.stats.prefill_chunks == chunks
+    assert [out1, list(srv.done[4].output)] == _chain(base, prompt, [(None, 8), (ext, 8)])
+
+
+def _chain(eng, prompt, turns):
+    """A conversation driven by hand on a session-off engine, row 0 live:
+    admitted as the server admits it (page-sized chunks, the last one
+    fused with the insert), then each turn's extension teacher-forced by
+    single decode steps. Returns one output list a turn."""
+    n = eng.ecfg.max_batch
+    active = [True] + [False] * (n - 1)
+    cache = eng.alloc_slot_cache()
+    S, c = len(prompt), eng.chunk_tokens()
+    if S <= c:
+        logits, cache = eng.insert_request(cache, 0, prompt)
+    else:
+        bounds = sorted(set(range(0, S, c)) | {S})
+        scratch = eng.chunk_init(S)
+        for s0, s1 in zip(bounds[:-2], bounds[1:-1]):
+            _, scratch = eng.chunk_step(scratch, prompt[s0:s1], s0)
+        logits, cache = eng.chunk_final(cache, 0, scratch, prompt[bounds[-2]:], bounds[-2])
+
+    def step(tok):
+        toks = np.zeros((n, 1), np.int32)
+        toks[0, 0] = tok
+        lg, c_ = eng.decode(cache, toks)
+        return int(torch.argmax(lg[0])), eng.mask_free(c_, active)
+
+    t, outs = int(torch.argmax(logits)), []
+    for ext, max_new in turns:
+        if ext is not None:
+            for f in [outs[-1][-1]] + [int(x) for x in ext[:-1]]:
+                _, cache = step(f)
+            t, cache = step(int(ext[-1]))
+        out = [t]
+        for _ in range(max_new - 1):
+            t, cache = step(t)
+            out.append(t)
+        outs.append(out)
+    return outs
