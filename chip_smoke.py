@@ -7,6 +7,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device - the card's name and power limit (nvidia-smi), torch and CUDA
      versions; then every CUDA kernel is built from csrc/ with nvcc.
+  1b. storage (after the llama2-7b engine is built) - the paper's storage
+     tier, which runs no kernel of its own: every 64-token block of the
+     model's K/V (one 2048-token random prompt prefilled with policy none
+     on dense storage, 32 layers x 32 kv heads, head dim 128: 32,768
+     blocks) and of synthetic_kv at the same shape (the llama2-7b-like
+     profile, made by two worker processes meanwhile) quantized token-wise
+     (K rel 0.1, V rel 0.2), repacked (none, median_v, greedy_joint) and
+     bit-packed in pack 8 by CompressedKVStream.extend on the card. Checks:
+     unpack(pack(q)) == q and |x - decode| <= scale / 2 (plus the f32
+     rounding of x - lo and the quotient) at every value; the payload bits
+     of a re-encode equal the stream's; blocks 0-3 of every head of layers
+     0 and 31 (256 blocks) bitwise equal to the plain CPU path (append, a
+     block at a time: perm, scale / zero, widths, minima, words and the
+     serialized stream with its directory) for median_v and greedy_joint.
+     Reports the K, V and joint ratios beside KIVI's analytic ratio at the
+     same rel scale and the gain over it, the storage bytes a token beside
+     the compute tier's and bf16's, extend's and the encode's device ms
+     (CUDA events), blocks a second, and the sample's plain CPU time.
   2. kernel - the fused compressed-cache attention kernel (K2) against its
      plain PyTorch version on the card, at llama2-7b decode shapes (B=4,
      H_kv=32, G=1, D=128, L=2048, ragged n_comp {0, 64, 1344, 2048}) under
@@ -1916,6 +1934,255 @@ def phase_matvec(engine, device) -> dict:
     return kernels
 
 
+
+# storage: the paper's storage tier (quantize -> repack -> bit-pack, the
+# block stream) over llama2-7b's full-width K/V and synthetic K/V of the
+# same shape
+STORAGE_TOKENS = 2048  # one prompt: 32 blocks of 64 a (layer, kv head)
+STORAGE_MODES = ("none", "median_v", "greedy_joint")
+STORAGE_SAMPLE_BLOCKS = 4  # blocks 0-3 of every head of the first and last layer
+STORAGE_SEED = 21  # input A's prompt; input B's K and V streams
+STORAGE_GROUP = 8  # input B's layers a worker task
+STORAGE_WORKERS = 2  # worker processes making input B (more slow input A's launches)
+# the storage-tier benchmarks' llama2-7b-like profile; V carries token
+# categories and half the channel outliers
+STORAGE_K_PROFILE = dict(channel_scale=2.0, smooth=0.88, noise=0.20,
+                         outlier_frac=0.05, spike_frac=0.10, spike_mag=4.0)
+STORAGE_V_PROFILE = dict(STORAGE_K_PROFILE, n_patterns=4, pattern_scale=1.2,
+                         outlier_frac=0.025)
+
+
+def model_kv(engine, cfg, tokens: int, seed: int):
+    """Every layer's K and V of one random prompt, prefilled with policy
+    'none' on dense storage as the engine's calibration does: f32 [layers
+    x kv heads, tokens, head dim] each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, (1, tokens))
+    none_cfg = dataclasses.replace(engine.pack_cfg, policy="none", paged=False)
+    _, cache = engine.api.prefill(engine.params, cfg, none_cfg, tokens,
+                                  {"tokens": torch.as_tensor(prompt, dtype=torch.int32,
+                                                             device=engine.device)})
+    check(all(int(c.n_comp.min()) == tokens for c in cache),
+          "the prefill left tokens outside the raw region")
+    k = torch.cat([c.raw_k[0].float() for c in cache])
+    v = torch.cat([c.raw_v[0].float() for c in cache])
+    return k, v
+
+
+def synthetic_part(layers: int, n_kv: int, hd: int, tokens: int, seed: int,
+                   part: int, group: int):
+    """``synthetic_kv`` of ``layers`` layers of a model's K (part 0) or V
+    (part 1), layers as the batch, from the fixed stream (seed, part,
+    group): f32 numpy [layers x kv heads, tokens, head dim]. Runs in a
+    worker process."""
+    import numpy as np
+
+    from repro_torch.data import synthetic_kv
+
+    rng = np.random.default_rng(np.random.SeedSequence([seed, part, group]))
+    profile = STORAGE_V_PROFILE if part else STORAGE_K_PROFILE
+    x = synthetic_kv(rng, layers, n_kv, tokens, hd, **profile)
+    return x.reshape(-1, tokens, hd)
+
+
+def part_cr(stream, part: str) -> float:
+    """K- or V-only storage ratio, counted as the storage-tier tables count
+    it: a block's total bits plus 32 bits a token."""
+    bits = vals = 0
+    for e in stream.entries:
+        blk = e.k_block if part == "k" else e.v_block
+        bits += blk.total_bits() + e.n_tokens * 32
+        vals += e.n_tokens * blk.shape[1]
+    return vals * 16 / bits
+
+
+def raw_bytes(t):
+    """A tensor's bytes, flat (to compare any dtype bitwise)."""
+    import torch
+
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def entry_arrays(e) -> dict:
+    """One stream entry's integer and metadata fields on the host."""
+    return {"perm": e.perm.cpu(), "k_meta": e.k_meta.cpu(), "v_meta": e.v_meta.cpu(),
+            **{f"{p}_{f}": getattr(getattr(e, f"{p}_block"), f).cpu()
+               for p in ("k", "v") for f in ("payload", "widths", "mins")}}
+
+
+def storage_checks(k, v, stream) -> float:
+    """On the card, every block of ``stream`` (which ``extend`` filled
+    from k, v [H, L, D]) re-encoded chunk by chunk: the bit-packing round
+    trip exact, every value within half a scale (plus the f32 rounding of
+    x - lo and of the quotient) of its decode, and the payload bits equal
+    to the stream's. Returns the encode's device ms (CUDA events)."""
+    import torch
+
+    from repro_torch.core import block_format as bf
+    from repro_torch.core.bitpack import unpack_block
+
+    D = k.shape[-1]
+    kb, vb = k.reshape(-1, bf.BLOCK, D), v.reshape(-1, bf.BLOCK, D)
+    total_ms, bits = 0.0, 0
+    for s in range(0, kb.shape[0], bf.EXTEND_CHUNK_BLOCKS):
+        xs = (kb[s:s + bf.EXTEND_CHUNK_BLOCKS], vb[s:s + bf.EXTEND_CHUNK_BLOCKS])
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        enc = bf.encode_blocks(*xs, stream.pack_size, stream.repack_mode,
+                               stream.k_quant, stream.v_quant)
+        b.record()
+        b.synchronize()
+        total_ms += a.elapsed_time(b)
+        rows = enc.perm.unsqueeze(-1)
+        for x, packed, meta, quant in ((xs[0], enc.k, enc.k_meta, stream.k_quant),
+                                       (xs[1], enc.v, enc.v_meta, stream.v_quant)):
+            q, _, _ = bf.quant_tokenwise(x, quant)
+            q = q.gather(1, rows.expand_as(q))
+            check(torch.equal(unpack_block(packed), q), "unpack(pack(q)) != q")
+            xp = x.gather(1, rows.expand_as(x))
+            scale, lo = meta[..., :1], meta[..., 1:]
+            dec = q.double() * scale.double() + lo.double()
+            eps = torch.finfo(torch.float32).eps
+            bound = (scale.double() * (0.5 + quant.max_q * eps)
+                     + (xp.abs() + lo.abs()).double() * eps)
+            check(bool(((xp.double() - dec).abs() <= bound).all()),
+                  "a decoded value off by more than half a scale")
+            bits += int(packed.total_bits().sum())
+    want = sum(e.k_block.total_bits() + e.v_block.total_bits() for e in stream.entries)
+    check(bits == want, f"re-encoded bits {bits} != the stream's {want}")
+    return total_ms
+
+
+def storage_sample(k, v, stream, n_heads: int, n_kv: int) -> dict:
+    """The device stream's entries of blocks 0-3 of every head of the first
+    and last layer against the plain CPU path (``append``, one block at a
+    time) on the same values: perm, scale / zero, widths, minima, payload
+    words and the serialized stream with its directory, bitwise."""
+    import torch
+
+    from repro_torch.core.block_format import BLOCK, CompressedKVStream
+
+    nb = k.shape[1] // BLOCK
+    heads = list(range(n_kv)) + list(range(n_heads - n_kv, n_heads))
+    picked = [h * nb + b for h in heads for b in range(STORAGE_SAMPLE_BLOCKS)]
+    plain = CompressedKVStream(pack_size=stream.pack_size, repack_mode=stream.repack_mode,
+                               k_quant=stream.k_quant, v_quant=stream.v_quant)
+    kc, vc = k.cpu(), v.cpu()
+    t0 = time.perf_counter()
+    for i in picked:
+        h, b = divmod(i, nb)
+        tokens = slice(b * BLOCK, (b + 1) * BLOCK)
+        plain.append(kc[h, tokens], vc[h, tokens], h, b * BLOCK)
+    plain_s = time.perf_counter() - t0
+    dev = CompressedKVStream(pack_size=stream.pack_size, repack_mode=stream.repack_mode,
+                             entries=[stream.entries[i] for i in picked])
+    for d, p in zip(dev.entries, plain.entries):
+        check((d.head, d.token_start) == (p.head, p.token_start), "sample out of order")
+        da, pa = entry_arrays(d), entry_arrays(p)
+        for name in da:
+            check(torch.equal(raw_bytes(da[name]), raw_bytes(pa[name])),
+                  f"{stream.repack_mode}: block ({d.head}, {d.token_start}) {name} "
+                  "differs between the card and the CPU path")
+    (dflat, ddir), (pflat, pdir) = dev.serialize(), plain.serialize()
+    check(ddir == pdir and torch.equal(dflat.cpu(), pflat),
+          f"{stream.repack_mode}: the serialized sample differs")
+    return {"sample_blocks": len(picked), "sample_words": int(pflat.numel()),
+            "sample_plain_cpu_s": plain_s}
+
+
+def phase_storage(engine, cfg, card: str) -> None:
+    """The storage tier over llama2-7b's full-width K/V (input A, the
+    model's own prefill; input B, ``synthetic_kv`` of the same shape):
+    for each repack mode the K, V and joint ratios beside KIVI's at the
+    same rel scale, the bytes a token beside the compute tier's and
+    bf16's, the pipeline's device time, and the checks."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    # input B is made on the host, STORAGE_GROUP layers a task, by worker
+    # processes while input A runs
+    check(cfg.n_layers % STORAGE_GROUP == 0, f"{cfg.n_layers} layers in groups of "
+          f"{STORAGE_GROUP}")
+    groups = range(cfg.n_layers // STORAGE_GROUP)
+    with ProcessPoolExecutor(STORAGE_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        t_in = time.perf_counter()
+        futures = [[pool.submit(synthetic_part, STORAGE_GROUP, cfg.n_kv_heads, cfg.hd,
+                                STORAGE_TOKENS, STORAGE_SEED, part, g) for g in groups]
+                   for part in (0, 1)]
+        storage_input(engine, cfg, card, "model",
+                      model_kv(engine, cfg, STORAGE_TOKENS, STORAGE_SEED))
+        ks, vs = (torch.cat([torch.from_numpy(f.result()).cuda() for f in fs])
+                  for fs in futures)
+        synth_s = time.perf_counter() - t_in
+    storage_input(engine, cfg, card, "synthetic", (ks, vs),
+                  {"synthetic_ready_s": synth_s})
+    del ks, vs
+    torch.cuda.empty_cache()
+
+
+def storage_input(engine, cfg, card: str, source: str, kv, extra=None) -> None:
+    """The storage phase's rows of one input (k, v f32 [H, L, D] on the
+    card), one a repack mode."""
+    import gc
+
+    import torch
+
+    from repro_torch.core.block_format import BLOCK, CompressedKVStream
+    from repro_torch.core.kivi import kivi_cr_from_rel_scale
+
+    k, v = kv
+    comp_bytes, bf16_bytes = compressed_bytes_per_token(cfg, engine)
+    n_heads = cfg.n_layers * cfg.n_kv_heads
+    check(tuple(k.shape) == tuple(v.shape) == (n_heads, STORAGE_TOKENS, cfg.hd)
+          and bool(torch.isfinite(k).all() and torch.isfinite(v).all()),
+          f"{source}: K/V misshapen or not finite")
+    for mode in STORAGE_MODES:
+        stream = CompressedKVStream(pack_size=8, repack_mode=mode)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        stream.extend(k, v)
+        b.record()
+        b.synchronize()
+        wall = time.perf_counter() - t0
+        blocks = len(stream.entries)
+        check(blocks == n_heads * STORAGE_TOKENS // BLOCK, f"{blocks} blocks")
+        encode_ms = storage_checks(k, v, stream)
+        sample = (storage_sample(k, v, stream, n_heads, cfg.n_kv_heads)
+                  if mode != "none" else {})
+        kivi_k = kivi_cr_from_rel_scale(stream.k_quant.rel_scale)
+        kivi_v = kivi_cr_from_rel_scale(stream.v_quant.rel_scale)
+        kivi_joint = 2 / (1 / kivi_k + 1 / kivi_v)  # K and V hold as many values
+        k_cr, v_cr = part_cr(stream, "k"), part_cr(stream, "v")
+        joint = stream.compression_ratio()
+        total_bits = stream.total_bits()
+        emit({"phase": "storage", "input": source, "repack": mode, "pack_size": 8,
+              "k_rel": stream.k_quant.rel_scale, "v_rel": stream.v_quant.rel_scale,
+              "blocks": blocks, "shape": [n_heads, STORAGE_TOKENS, cfg.hd],
+              "k_cr": k_cr, "v_cr": v_cr, "joint_cr": joint,
+              "kivi_k_cr": kivi_k, "kivi_v_cr": kivi_v, "kivi_joint_cr": kivi_joint,
+              "gain_over_kivi_pct": {"k": (k_cr / kivi_k - 1) * 100,
+                                     "v": (v_cr / kivi_v - 1) * 100,
+                                     "joint": (joint / kivi_joint - 1) * 100},
+              "storage_bytes_per_token": total_bits / 8 / STORAGE_TOKENS,
+              "compute_tier_bytes_per_token": comp_bytes,
+              "bf16_bytes_per_token": bf16_bytes,
+              "extend_ms": a.elapsed_time(b), "extend_wall_s": wall,
+              "encode_device_ms": encode_ms,
+              "blocks_per_s": blocks / (encode_ms / 1e3),
+              **sample, **(extra or {}), "nvidia_smi": card})
+        del stream
+        gc.collect()
+
+
 def main() -> int:
     import torch
 
@@ -1966,6 +2233,7 @@ def main() -> int:
                      engine.pack_cfg.k_spec_static.counts],
           "v_spec": [engine.pack_cfg.v_spec_static.widths,
                      engine.pack_cfg.v_spec_static.counts]})
+    phase_storage(engine, cfg, card)
     # smollm-135m's engine: its calibrated spec is the kernel phases' D=64
     # one; serve_configs serves it first
     smollm = config_engine("smollm-135m", device, 10, prefill_chunk_pages=0)

@@ -19,6 +19,11 @@ A dense ``LayerKVCache`` is given as a nested dict of arrays::
 
 with the K and V ``TierSpec``s as (widths, counts, pack_size) tuples. A
 paged cache (``pages`` given, ``cfg.paged``) holds pool-layout leaves.
+
+The storage tier crosses as the reference's objects (``PackedBlock``,
+``CompressedKVStream`` and its entries: numpy fields read by name) or as
+the dicts ``packed_block_to_numpy`` / ``stream_to_numpy`` give, with the
+same field names; payload words go uint32 <-> int32 bits.
 """
 from __future__ import annotations
 
@@ -28,7 +33,10 @@ import numpy as np
 import torch
 
 from .configs.base import ArchConfig
+from .core.bitpack import PackedBlock
+from .core.block_format import BlockEntry, CompressedKVStream
 from .core.cache import LayerKVCache, PackKVConfig, PagePool
+from .core.quantization import QuantConfig
 from .core.tiered import TierBuffer, TierSpec, TieredCache
 
 
@@ -144,3 +152,60 @@ def layer_cache_to_numpy(cache: LayerKVCache) -> dict:
             "pages": None if cache.pages is None else {
                 key: tensor_to_numpy(getattr(cache.pages, key))
                 for key in ("page_table", "free", "n_free", "ref")}}
+
+
+def _field(obj, name: str):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def packed_block_from_numpy(blk, device="cuda") -> PackedBlock:
+    """A reference ``PackedBlock`` (or its dict) -> this package's."""
+    get = lambda name: tensor_from_numpy(_field(blk, name), device)
+    return PackedBlock(payload=get("payload"), widths=get("widths"), mins=get("mins"),
+                       pack_size=int(_field(blk, "pack_size")),
+                       shape=tuple(int(x) for x in _field(blk, "shape")),
+                       payload_bits=int(_field(blk, "payload_bits")))
+
+
+def packed_block_to_numpy(blk: PackedBlock) -> dict:
+    """The reference's ``PackedBlock`` fields as numpy (payload uint32)."""
+    return {"payload": tensor_to_numpy(blk.payload).view(np.uint32),
+            "widths": tensor_to_numpy(blk.widths), "mins": tensor_to_numpy(blk.mins),
+            "pack_size": blk.pack_size, "shape": tuple(blk.shape),
+            "payload_bits": blk.payload_bits}
+
+
+def _quant_config(q) -> QuantConfig:
+    return QuantConfig(**{f.name: _field(q, f.name)
+                          for f in dataclasses.fields(QuantConfig)})
+
+
+def stream_from_numpy(s, device="cuda") -> CompressedKVStream:
+    """A reference ``CompressedKVStream`` (or its dict) -> this package's."""
+    entries = [BlockEntry(
+        head=int(_field(e, "head")), token_start=int(_field(e, "token_start")),
+        n_tokens=int(_field(e, "n_tokens")),
+        perm=tensor_from_numpy(_field(e, "perm"), device),
+        k_block=packed_block_from_numpy(_field(e, "k_block"), device),
+        v_block=packed_block_from_numpy(_field(e, "v_block"), device),
+        k_meta=tensor_from_numpy(_field(e, "k_meta"), device),
+        v_meta=tensor_from_numpy(_field(e, "v_meta"), device))
+        for e in _field(s, "entries")]
+    return CompressedKVStream(pack_size=int(_field(s, "pack_size")),
+                              repack_mode=_field(s, "repack_mode"),
+                              k_quant=_quant_config(_field(s, "k_quant")),
+                              v_quant=_quant_config(_field(s, "v_quant")),
+                              entries=entries)
+
+
+def stream_to_numpy(s: CompressedKVStream) -> dict:
+    """The reference's ``CompressedKVStream`` fields as numpy dicts."""
+    return {"pack_size": s.pack_size, "repack_mode": s.repack_mode,
+            "k_quant": dataclasses.asdict(s.k_quant),
+            "v_quant": dataclasses.asdict(s.v_quant),
+            "entries": [{"head": e.head, "token_start": e.token_start,
+                         "n_tokens": e.n_tokens, "perm": tensor_to_numpy(e.perm),
+                         "k_block": packed_block_to_numpy(e.k_block),
+                         "v_block": packed_block_to_numpy(e.v_block),
+                         "k_meta": tensor_to_numpy(e.k_meta),
+                         "v_meta": tensor_to_numpy(e.v_meta)} for e in s.entries]}

@@ -14,6 +14,14 @@ def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
 
 
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d with one rounding on every device. PyTorch's CUDA division of
+    a tensor by a Python number multiplies by the number's reciprocal (two
+    roundings), which differs from the CPU's and numpy's quotient in the
+    last bit; dividing by a tensor divides."""
+    return x / torch.full_like(x, d)
+
+
 def bits_required(rng: torch.Tensor) -> torch.Tensor:
     """ceil(log2(r+1)) for non-negative integer ranges; 0 when r == 0.
 

@@ -947,3 +947,128 @@ def _chain(eng, prompt, turns):
             out.append(t)
         outs.append(out)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the storage tier (quantizers, repacking, bit-packing, the block stream):
+# the card's tensor ops against the same functions on the CPU, bitwise
+# ---------------------------------------------------------------------------
+
+STORAGE_PROFILE = dict(channel_scale=2.0, smooth=0.88, noise=0.20, outlier_frac=0.05,
+                       spike_frac=0.10, spike_mag=4.0)
+
+
+def _storage_blocks(seed: int, n_blocks: int, d: int):
+    """K- and V-like float32 blocks [n_blocks, 64, d] (synthetic_kv)."""
+    from repro_torch.data import synthetic_kv
+
+    rng = np.random.default_rng(seed)
+    k = synthetic_kv(rng, 1, n_blocks, 64, d, **STORAGE_PROFILE)[0]
+    v = synthetic_kv(rng, 1, n_blocks, 64, d, n_patterns=4, pattern_scale=1.2,
+                     **dict(STORAGE_PROFILE, outlier_frac=0.025))[0]
+    return torch.from_numpy(k), torch.from_numpy(v)
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [4, 8, 16])
+@pytest.mark.parametrize("d", [128, 256])
+def test_greedy_repack_device_equals_cpu(cuda, d, pack):
+    """The batched greedy repack on the card equals the CPU path bitwise
+    on 512 blocks (128 each at rel 0.1, 0.2, 0.5 and 1.0, where seeds tie
+    exactly): D 128 repacks K alone, D 256 the joint [K|V]."""
+    from repro_torch.core.block_format import quant_tokenwise
+    from repro_torch.core.quantization import QuantConfig
+    from repro_torch.core.repacking import greedy_repack
+
+    k, v = _storage_blocks(d + pack, 128, 128)
+    qs = []
+    for rel in (0.1, 0.2, 0.5, 1.0):
+        qk = quant_tokenwise(k, QuantConfig(rel_scale=rel))[0]
+        qv = quant_tokenwise(v, QuantConfig(rel_scale=rel))[0]
+        qs.append(qk if d == 128 else torch.cat([qk, qv], dim=-1))
+    q = torch.cat(qs)
+    got = greedy_repack(q.to(cuda), pack)
+    want = greedy_repack(q, pack)
+    assert got.shape == (512, 64) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [4, 8, 16])
+def test_pack_unpack_device_equals_cpu(cuda, pack):
+    """Bit-packing on the card: words, widths, minima and payload bits
+    equal the CPU path's bitwise at every width 0-16 (a constant block
+    among them), and the round trip is exact."""
+    from repro_torch.core.bitpack import pack_block, unpack_block
+
+    gen = torch.Generator().manual_seed(pack)
+    q = torch.stack([torch.randint(-3, (1 << w) - 3, (64, 128), generator=gen)
+                     for w in range(17)]).reshape(17, 1, 64, 128)
+    got, want = pack_block(q.to(cuda), pack), pack_block(q, pack)
+    for f in ("payload", "n_words", "widths", "mins", "payload_bits"):
+        assert torch.equal(_raw(getattr(got, f)), _raw(getattr(want, f))), f
+    assert torch.equal(unpack_block(got).cpu(), q)
+    one = pack_block(q[3, 0].to(cuda), pack)
+    assert torch.equal(one.payload.cpu(), pack_block(q[3, 0], pack).payload)
+    assert torch.equal(unpack_block(one).cpu(), q[3, 0])
+
+
+@pytest.mark.gpu
+def test_quantizers_device_equal_cpu(cuda):
+    """The token- and channel-wise quantizers, their dequantizers, the
+    stream's float32 quantizer and KIVI's on the card equal the CPU's
+    bitwise (a constant unit included)."""
+    from repro_torch.core import kivi
+    from repro_torch.core import quantization as tq
+    from repro_torch.core.block_format import quant_tokenwise
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 3, 128, 64), generator=gen) * (
+        0.1 + 10 * torch.rand((1, 3, 1, 64), generator=gen))
+    x[0, 0, :64] = 1.5
+    for cfg in (tq.QuantConfig(rel_scale=0.1), tq.QuantConfig(bits=2),
+                tq.QuantConfig(rel_scale=0.2, granularity="channel", group_size=32),
+                tq.QuantConfig(bits=3, granularity="channel")):
+        got, want = tq.quantize(x.to(cuda), cfg), tq.quantize(x, cfg)
+        for g, w in zip(got, want):
+            assert torch.equal(_raw(g), _raw(w)), cfg
+        assert torch.equal(_raw(tq.dequantize(*got, cfg)), _raw(tq.dequantize(*want, cfg)))
+        if cfg.granularity == "token":
+            for g, w in zip(quant_tokenwise(x.to(cuda), cfg), quant_tokenwise(x, cfg)):
+                assert torch.equal(_raw(g), _raw(w)), cfg
+    kc = kivi.KIVIConfig(k_bits=3, v_bits=2)
+    for fn in (kivi.compress_k, kivi.compress_v):
+        for g, w in zip(fn(x.to(cuda), kc), fn(x, kc)):
+            assert torch.equal(_raw(g), _raw(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["greedy_joint", "median_v", "none"])
+def test_stream_extend_device_equals_cpu(cuda, mode):
+    """A stream of 4 heads x 4 blocks filled by ``extend`` on the card
+    equals the CPU's entry by entry, with its decode (float64, no fused
+    multiply-add) and its serialization, bitwise."""
+    from repro_torch.core.block_format import CompressedKVStream
+
+    k, v = _storage_blocks(2, 16, 128)
+    k, v = k.reshape(4, 256, 128), v.reshape(4, 256, 128)
+    dev, cpu = CompressedKVStream(repack_mode=mode), CompressedKVStream(repack_mode=mode)
+    dev.extend(k.to(cuda), v.to(cuda))
+    cpu.extend(k, v)
+    assert len(dev.entries) == len(cpu.entries) == 16
+    for i, (d, c) in enumerate(zip(dev.entries, cpu.entries)):
+        assert (d.head, d.token_start) == (c.head, c.token_start)
+        for f in ("perm", "k_meta", "v_meta"):
+            assert torch.equal(_raw(getattr(d, f)), _raw(getattr(c, f))), f
+        for blk in ("k_block", "v_block"):
+            for f in ("payload", "widths", "mins"):
+                assert torch.equal(_raw(getattr(getattr(d, blk), f)),
+                                   _raw(getattr(getattr(c, blk), f))), (blk, f)
+        for g, w in zip(dev.decode_block(i, True), cpu.decode_block(i, True)):
+            assert torch.equal(_raw(g), _raw(w))
+    (df, dd), (cf, cd) = dev.serialize(), cpu.serialize()
+    assert dd == cd and torch.equal(df.cpu(), cf)
+    assert dev.total_bits() == cpu.total_bits()
