@@ -160,13 +160,44 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      page leaked, every request no fault touched bitwise equal to a
      fault-free control.
 
+  13. serve_moe (after serve_prefix, qwen3-32b freed) - qwen2-moe-a2.7b at
+     full width and depth (24 layers, d_model 2048, 16 heads over 16 kv
+     heads, 60 routed experts top-4 and 4 shared, Fe 1408, vocab 151936;
+     28.6 GB of bf16), policy packkv, capacity 2048, 4 slots: 6 requests
+     (prompts 320/700/1000/450/260/900, 64 new tokens) in four runs: (a)
+     dense, chunked admission: K2 == n_layers x decode steps, K5 == 0; (b)
+     paged (pages of 256), chunked: every token bitwise equal to (a), K5
+     == n_layers x decode steps, K2 == 0; (c) dense, spec_k 4, the replay
+     drafter: every request no verify pass dropped a routed choice of
+     bitwise equal to (a), at least one such request; (d) dense,
+     monolithic admission: its agreement with (a) reported only (C
+     follows the chunk's length in one and the prompt's in the other).
+     Then one prefill chunk, one prefill and one decode step with the
+     routing log keeping tensors: the card's top-k indices, positions,
+     keep mask and slots equal the CPU's from the same logits (a tie
+     within 1e-6 counted). Reports decode tok/s, C and dropped choices per
+     call site, compressed bytes per token (the paper's count and the
+     device's), peak memory. Then, qwen2-moe freed, moonshot-v1-16b-a3b
+     at full width and depth (48 layers, 64 experts top-6 and 2 shared,
+     vocab 163840; 57.8 GB), dense, monolithic, 4 requests of 32 new
+     tokens: K2 == n_layers x decode steps, outputs in the vocabulary.
+  14. serve_vlm - internvl2-2b at full width and depth (24 layers, 8 kv
+     heads, G 2): Engine.generate at B=2 over 256 random patch embeddings
+     before 512 text tokens, 32 new tokens: K2 == n_layers x decode steps,
+     finite prefill logits, the cache holding patches + tokens + steps.
+  15. encode - hubert-xlarge at full width and depth (48 layers, d_model
+     1280): encode of 2 x 1024 random frames: [2, 1024, 1280], finite;
+     one call's device time by CUDA events.
+
 Then the kernels line (K2's launches summed over the dense serve phases,
-serve_spec's, serve_preempt's and serve_session's dense runs included,
-K5's over the paged, paged speculative, prefix, and paged preempt,
-session and fault ones) and, last, {"ok": true, "device": {...}}.
+serve_spec's, serve_preempt's, serve_session's, serve_moe's and
+serve_vlm's dense runs included, K5's over the paged, paged speculative,
+prefix, paged preempt, session, fault and serve_moe paged ones) and,
+last, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1620,6 +1651,347 @@ def phase_serve_prefix(device) -> dict:
     return {"launches": launches}
 
 
+# serve_moe / serve_vlm / encode: the MoE family, the VLM and the encoder
+MOE_PROMPTS = (320, 700, 1000, 450, 260, 900)
+MOE_NEW = 64
+MOONSHOT_PROMPTS = (320, 700, 450, 900)
+MOONSHOT_NEW = 32
+VLM_TOKENS, VLM_NEW = 512, 32
+ENCODE_FRAMES = 1024
+
+
+def device_bytes_per_token(cache) -> float:
+    """Bytes a token of context holds in a dense cache on the card: tier
+    payload words, pack mins and shifts, and the f32 scale and zero, over
+    every layer, per (row, token) of capacity."""
+    total = 0
+    for layer in cache:
+        for t in (layer.k, layer.v):
+            total += sum(x.numel() * x.element_size() for tier in t.tiers
+                         for x in (tier.payload, tier.mins, tier.shifts))
+            total += sum(x.numel() * x.element_size() for x in (t.scale, t.zero))
+    rows, cap = cache[0].n_comp.shape[0], cache[0].k.scale.shape[-1]
+    return total / (rows * cap)
+
+
+def routing_summary(log) -> dict:
+    """C and dropped routed choices per call site of an MoE routing log
+    (one host read)."""
+    import torch
+
+    out: dict = {}
+    if not log:
+        return out
+    dropped = torch.stack([c.dropped.sum() for c in log]).tolist()
+    for c, d in zip(log, dropped):
+        s = out.setdefault(c.site, {"calls": 0, "tokens": 0, "dropped_choices": 0,
+                                    "capacity": set()})
+        s["calls"] += 1
+        s["tokens"] += c.T
+        s["dropped_choices"] += int(d)
+        s["capacity"].add(c.C)
+    for s in out.values():
+        s["capacity"] = sorted(s["capacity"])
+    return out
+
+
+def moe_server_run(engine, cfg, prompts, max_new, drafter=None, log_routing=False):
+    """Serve ``prompts`` on a fresh SlotServer over ``engine`` with every
+    launch count set to 0 first. Returns (outputs, stats, wall s, K2 and K5
+    launches, routing summary, requests a verify pass dropped a routed
+    choice of)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+    from repro_torch.models import moe
+    from repro_torch.serving import Request, SlotServer
+
+    server = SlotServer(engine, drafter=drafter)
+    for i, p in enumerate(prompts):
+        server.submit(Request(rid=i, tokens=p, max_new=max_new))
+    verify_dropped: set = set()
+    verify = engine.decode_verify
+
+    def traced_verify(cache, toks, *a, **kw):
+        rows = [x.req.rid if x is not None else None for x in server.slots]
+        n0 = len(log)
+        out = verify(cache, toks, *a, **kw)
+        hit = torch.stack([c.dropped.view(len(rows), -1).sum(1) for c in log[n0:]]).sum(0)
+        verify_dropped.update(rid for rid, h in zip(rows, hit.tolist())
+                              if rid is not None and h)
+        return out
+
+    if drafter is not None:
+        engine.decode_verify = traced_verify
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    # the plain timed runs record nothing
+    logged = log_routing or drafter is not None
+    try:
+        with moe.routing_log() if logged else contextlib.nullcontext([]) as log:
+            t0 = time.perf_counter()
+            done = {r.rid: r for r in server.run()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        engine.__dict__.pop("decode_verify", None)
+    check(len(done) == len(prompts), f"{cfg.name}: not every request finished")
+    outs = {rid: np.asarray(r.output) for rid, r in done.items()}
+    for out in outs.values():
+        check(out.shape == (max_new,) and (out >= 0).all() and (out < cfg.vocab).all(),
+              f"{cfg.name}: an output out of the vocabulary")
+    k2, k5 = fused_packed_attention.launches, fused_packed_attention_paged.launches
+    return (outs, server.stats, wall, k2, k5,
+            routing_summary(log) if log_routing else {}, verify_dropped)
+
+
+def moe_routing_on_card(engine, cfg, prompt) -> dict:
+    """One prefill chunk (a full page of ``prompt``), one monolithic
+    prefill and one decode step with the routing log keeping tensors: each
+    call's top-k indices, positions, keep mask and slots on the card equal
+    those ``moe.route`` computes on the CPU from the same logits copied to
+    the host, but where the card's top-k gap is below 1e-6 (a tie the
+    two softmaxes may round apart: counted)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    E, k = cfg.n_experts, cfg.moe_topk
+    with moe.routing_log(keep_tensors=True) as log:
+        scratch = engine.chunk_init(len(prompt))
+        engine.chunk_step(scratch, prompt[:256], 0)
+        logits, cache = engine.prefill({"tokens": prompt[None, :512]})
+        engine.decode(cache, torch.argmax(logits, -1).to(torch.int32)[:, None])
+    torch.cuda.synchronize()
+    out = {"calls": 0, "tokens": 0, "ties": 0}
+    for c in log:
+        r, cpu = c.routing, moe.route(c.logits.cpu(), E, k)
+        check(r.C == cpu.C, f"routing on the card: C {r.C} != CPU {cpu.C}")
+        tie = (r.gap.cpu() < 1e-6).numpy()
+        for f in ("idx", "pos", "keep", "slot"):
+            a, b = getattr(r, f).cpu().numpy(), getattr(cpu, f).numpy()
+            a, b = a.reshape(c.T, -1), b.reshape(c.T, -1)
+            # a tie at one token moves the later positions of its experts
+            bad = np.nonzero((a != b).any(1))[0]
+            check(len(bad) == 0 or tie[bad[0]],
+                  f"routing on the card ({c.site}, {f}) != CPU at token {bad[:4]}")
+        out["calls"] += 1
+        out["tokens"] += c.T
+        out["ties"] += int(tie.sum())
+    out["sites"] = sorted({c.site for c in log})
+    check(out["sites"] == ["chunk", "decode", "prefill"], f"routed sites {out['sites']}")
+    return out
+
+
+def phase_serve_moe(device) -> dict:
+    """qwen2-moe-a2.7b at full width and depth, 6 requests of 64 new
+    tokens, in four runs: (a) dense, chunked admission; (b) paged (pages of
+    256), bitwise equal to (a); (c) dense, spec_k 4 with the replay drafter,
+    bitwise equal to (a) for every request no verify pass dropped a routed
+    choice of (at least one); (d) dense, monolithic admission, its
+    agreement with (a) reported (C follows the chunk's length in one and
+    the prompt's in the other). The routing on the card equals the CPU's.
+    Then moonshot-v1-16b-a3b at full width and depth, dense, 4 requests of
+    32 new tokens. K2 (K5) launches n_layers x decode steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import Engine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, engine = config_engine("qwen2-moe-a2.7b", device, 30, prefill_chunk_pages=1)
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in MOE_PROMPTS]
+    variant = lambda **kw: Engine(cfg, engine.params, engine.pack_cfg, dataclasses.replace(
+        engine.ecfg, calibrate=False, **kw))
+    runs, total = {}, {"dense": 0, "paged": 0}
+    plan = [("a_dense_chunked", engine, None), ("b_paged_chunked", variant(
+        paged=True, page_size=256), None), ("c_dense_spec", variant(spec_decode=True), 3),
+            ("d_dense_monolithic", variant(prefill_chunk_pages=0), None)]
+    for name, eng, corrupt in plan:
+        drafter = None
+        if corrupt is not None:
+            drafter = ReplayDrafter({tuple(int(t) for t in p): runs["a_dense_chunked"][0][i]
+                                     for i, p in enumerate(prompts)}, cfg.vocab, corrupt)
+        outs, s, wall, k2, k5, routing, vdrop = moe_server_run(
+            eng, cfg, prompts, MOE_NEW, drafter, log_routing=name == "a_dense_chunked")
+        runs[name] = (outs, s)
+        paged = eng.ecfg.paged
+        used, unused = (k5, k2) if paged else (k2, k5)
+        if drafter is None:
+            check(used == cfg.n_layers * s.decode_steps and unused == 0,
+                  f"serve_moe {name}: attention launches {used} (other {unused}) != "
+                  f"{cfg.n_layers} x {s.decode_steps} steps")
+        else:
+            want = cfg.n_layers * (s.decode_steps - s.spec_launches
+                                   + (SPEC_K + 1) * s.spec_launches)
+            check(s.spec_launches > 0 and used == want and unused == 0,
+                  f"serve_moe {name}: attention launches {used} != {want}")
+        base = runs["a_dense_chunked"][0]
+        agree = {rid: int(np.argmin(np.append(out == base[rid], False)))
+                 for rid, out in outs.items()}  # tokens equal before the first miss
+        if name == "b_paged_chunked":
+            check(all(np.array_equal(outs[r], base[r]) for r in base),
+                  "serve_moe: paged tokens != dense tokens")
+        clean = sorted(set(outs) - vdrop)
+        if drafter is not None:
+            check(len(clean) >= 1, "serve_moe: every request had a verify drop")
+            for rid in clean:
+                check(np.array_equal(outs[rid], base[rid]),
+                      f"serve_moe: spec request {rid} (no verify drop) != plain")
+        total["paged" if paged else "dense"] += used
+        entry = {"phase": "serve_moe", "arch": cfg.name, "run": name,
+                 "requests": len(prompts), "prompts": list(MOE_PROMPTS), "max_new": MOE_NEW,
+                 "decode_steps": s.decode_steps, "prefill_chunks": s.prefill_chunks,
+                 "k2_launches": k2, "k5_launches": k5, "wall_s": wall, "decode_s": s.decode_s,
+                 "decode_tok_s": (s.tokens_out - s.admitted) / s.decode_s,
+                 "tokens_equal_to_a": agree}
+        if routing:
+            entry["routing"] = routing
+        if drafter is not None:
+            entry.update(verify_passes=s.spec_launches, drafted=s.spec_drafted,
+                         accepted=s.spec_accepted, verify_dropped=sorted(vdrop),
+                         bitwise_equal_plain=clean)
+        emit(entry)
+    comp, bf16 = compressed_bytes_per_token(cfg, engine)
+    dense_cache = engine.alloc_slot_cache()
+    dev_bytes = device_bytes_per_token(dense_cache)
+    del dense_cache
+    card_routing = moe_routing_on_card(engine, cfg, prompts[2])
+    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+    emit({"phase": "serve_moe", "arch": cfg.name, "summary": True,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd, "experts": cfg.n_experts,
+          "top_k": cfg.moe_topk, "shared_experts": cfg.n_shared_experts,
+          "d_ff_expert": cfg.d_ff_expert, "vocab": cfg.vocab,
+          "params": cfg.param_count(), "active_params": cfg.active_param_count(),
+          "weights_gb": cfg.param_count() * 2 / 1e9, "engine_s": built,
+          "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+          "compressed_bytes_per_token": comp, "device_bytes_per_token": dev_bytes,
+          "bf16_bytes_per_token": bf16, "routing_on_card_equals_cpu": card_routing,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    for _, eng, _ in plan:  # the variants share the weights
+        eng.params = None
+    del plan, runs, eng
+    free_engine(engine)
+    del engine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, engine = config_engine("moonshot-v1-16b-a3b", device, 31, prefill_chunk_pages=0)
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in MOONSHOT_PROMPTS]
+    outs, s, wall, k2, k5, routing, _ = moe_server_run(engine, cfg, prompts, MOONSHOT_NEW,
+                                                       log_routing=True)
+    check(k2 == cfg.n_layers * s.decode_steps and k5 == 0,
+          f"moonshot: K2 launches {k2} != {cfg.n_layers} x {s.decode_steps} steps")
+    total["dense"] += k2
+    comp, bf16 = compressed_bytes_per_token(cfg, engine)
+    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+    emit({"phase": "serve_moe", "arch": cfg.name, "run": "dense_monolithic",
+          "n_layers": cfg.n_layers, "experts": cfg.n_experts, "top_k": cfg.moe_topk,
+          "shared_experts": cfg.n_shared_experts, "vocab": cfg.vocab,
+          "params": cfg.param_count(), "weights_gb": cfg.param_count() * 2 / 1e9,
+          "engine_s": built, "requests": len(prompts), "prompts": list(MOONSHOT_PROMPTS),
+          "max_new": MOONSHOT_NEW, "k_spec": [ks.widths, ks.counts],
+          "v_spec": [vs.widths, vs.counts], "decode_steps": s.decode_steps,
+          "k2_launches": k2, "wall_s": wall, "decode_s": s.decode_s,
+          "decode_tok_s": (s.tokens_out - s.admitted) / s.decode_s, "routing": routing,
+          "compressed_bytes_per_token": comp, "bf16_bytes_per_token": bf16,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    free_engine(engine)
+    return total
+
+
+def phase_serve_vlm(device) -> dict:
+    """internvl2-2b at full width and depth: Engine.generate at B=2 over
+    256 random patch embeddings before 512 text tokens, 32 new tokens. K2
+    launches n_layers x decode steps; the prefill's logits finite."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+
+    t0 = time.perf_counter()
+    cfg, engine = config_engine("internvl2-2b", device, 32, prefill_chunk_pages=0)
+    built = time.perf_counter() - t0
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, VLM_TOKENS)),
+             "patches": rng.normal(size=(2, cfg.n_patches, cfg.d_model))}
+    logits, _ = engine.prefill(batch)
+    check(bool(torch.isfinite(logits).all()), "serve_vlm: prefill logits not finite")
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    t0 = time.perf_counter()
+    toks, cache = engine.generate(batch, VLM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2 = fused_packed_attention.launches
+    steps = VLM_NEW  # generate's loop decodes once a token, the last one too
+    check(k2 == cfg.n_layers * steps and fused_packed_attention_paged.launches == 0,
+          f"serve_vlm: K2 launches {k2} != {cfg.n_layers} x {steps} steps")
+    check(toks.shape == (2, VLM_NEW) and (toks >= 0).all() and (toks < cfg.vocab).all(),
+          "serve_vlm: tokens out of the vocabulary")
+    held = int(cache[0].n_comp[0] + cache[0].n_resid[0])
+    check(held == cfg.n_patches + VLM_TOKENS + steps,
+          f"serve_vlm: the cache holds {held} tokens")
+    comp, bf16 = compressed_bytes_per_token(cfg, engine)
+    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+    emit({"phase": "serve_vlm", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_kv_heads": cfg.n_kv_heads, "G": cfg.n_heads // cfg.n_kv_heads,
+          "head_dim": cfg.hd, "batch": 2, "patches": cfg.n_patches,
+          "text_tokens": VLM_TOKENS, "max_new": VLM_NEW, "engine_s": built,
+          "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+          "k2_launches": k2, "generate_s": wall,
+          "generate_tok_s": 2 * VLM_NEW / wall, "compressed_bytes_per_token": comp,
+          "bf16_bytes_per_token": bf16})
+    free_engine(engine)
+    return {"launches": k2}
+
+
+def phase_encode(device) -> None:
+    """hubert-xlarge at full width and depth: encode of B=2 x 1024 random
+    frames (non-causal attention, no cache): [2, 1024, 1280], finite; the
+    device time of one call by CUDA events."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model, transformer
+
+    cfg = get_arch("hubert-xlarge")
+    params = get_model(cfg).init(torch.Generator(device=device).manual_seed(33), cfg)
+    gen = torch.Generator(device=device).manual_seed(34)
+    frames = torch.randn((2, ENCODE_FRAMES, cfg.d_model), generator=gen, device=device)
+    out = transformer.encode(params, cfg, {"frames": frames})  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = transformer.encode(params, cfg, {"frames": frames})
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(tuple(out.shape) == (2, ENCODE_FRAMES, cfg.d_model),
+          f"encode: output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "encode: output not finite")
+    emit({"phase": "encode", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "batch": 2, "frames": ENCODE_FRAMES,
+          "params": cfg.param_count(), "device_ms": start.elapsed_time(end),
+          "wall_s": wall, "frames_per_s": 2 * ENCODE_FRAMES / wall})
+    del params, out
+
+
 def tier_runs(tc_, flat, sliced: bool):
     """(tier, its (payload, mins, shifts) through ``flat``, its channel
     slice of q's head dim if ``sliced`` (K) else None (V, whose w is
@@ -2256,6 +2628,9 @@ def main() -> int:
     free_engine(engine)
     del engine
     prefix = phase_serve_prefix(device)
+    moe_runs = phase_serve_moe(device)
+    vlm = phase_serve_vlm(device)
+    phase_encode(device)
     print(card, flush=True)
     row = lambda name, source, replaces, k, launches: {
         "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -2267,11 +2642,11 @@ def main() -> int:
         row("fused_packed_attention", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:172", k2,
             serve["launches"] + spec["dense"] + configs["launches"] + preempt["dense"]
-            + session["dense"]),
+            + session["dense"] + moe_runs["dense"] + vlm["launches"]),
         row("fused_packed_attention_paged", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:375", k5,
             serve_paged["launches"] + spec["paged"] + prefix["launches"] + preempt["paged"]
-            + session["paged"] + faults["paged"]),
+            + session["paged"] + faults["paged"] + moe_runs["paged"]),
         row("kpack_tier_scores", "tier_matvec.cu",
             "src/repro/kernels/kpack_matvec.py:69", mv["K3"], mv["K3"]["launches"]),
         row("vpack_tier_out", "tier_matvec.cu",

@@ -1,8 +1,19 @@
 """Architecture configs ported so far (one module per arch)."""
 from .base import ArchConfig  # noqa: F401
-from . import llama2_7b, minicpm_2b, minitron_4b, qwen3_32b, smollm_135m
+from . import (
+    hubert_xlarge,
+    internvl2_2b,
+    llama2_7b,
+    minicpm_2b,
+    minitron_4b,
+    moonshot_v1_16b_a3b,
+    qwen2_moe_a2_7b,
+    qwen3_32b,
+    smollm_135m,
+)
 
-_MODULES = [minitron_4b, smollm_135m, minicpm_2b, qwen3_32b, llama2_7b]
+_MODULES = [minitron_4b, smollm_135m, minicpm_2b, qwen3_32b, qwen2_moe_a2_7b,
+            moonshot_v1_16b_a3b, hubert_xlarge, internvl2_2b, llama2_7b]
 
 ARCHS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKES = {m.CONFIG.name: m.SMOKE for m in _MODULES}

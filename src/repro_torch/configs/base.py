@@ -1,6 +1,7 @@
 """Architecture configuration schema (the torch port's copy of
-``repro/configs/base.py``; the shape grid and skip rules arrive with the
-families and benchmarks that use them)."""
+``repro/configs/base.py``: the dense, moe, vlm and encoder families'
+counts; the recurrent families' branches, the shape grid and the skip
+rules arrive with the ports that use them)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,11 +42,33 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
-    def param_count(self) -> int:
-        """Dense-family parameter count (embed + untied head + layers)."""
-        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
-        hd = self.hd
-        attn = D * (self.n_heads * hd) + 2 * D * (self.n_kv_heads * hd) + (
+    @property
+    def has_decode(self) -> bool:
+        return self.family != "encoder"
+
+    def _attn_params(self) -> int:
+        D, hd = self.d_model, self.hd
+        return D * (self.n_heads * hd) + 2 * D * (self.n_kv_heads * hd) + (
             self.n_heads * hd
         ) * D
+
+    def param_count(self) -> int:
+        """Embed + untied head + layers; an MoE layer counts every routed
+        and shared expert and its router."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        attn = self._attn_params()
+        if self.family == "moe":
+            moe = self.n_experts * 3 * D * self.d_ff_expert + D * self.n_experts
+            shared = self.n_shared_experts * 3 * D * self.d_ff_expert
+            return V * D * 2 + L * (attn + moe + shared)
         return V * D * 2 + L * (attn + 3 * D * F)
+
+    def active_param_count(self) -> int:
+        """Parameters one token runs through: an MoE layer's top-k and
+        shared experts and its router."""
+        if self.family != "moe":
+            return self.param_count()
+        D, L = self.d_model, self.n_layers
+        active = (self.moe_topk + self.n_shared_experts) * 3 * D * self.d_ff_expert
+        return self.vocab * D * 2 + L * (self._attn_params() + active
+                                         + D * self.n_experts)

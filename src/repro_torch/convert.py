@@ -38,6 +38,7 @@ from .core.block_format import BlockEntry, CompressedKVStream
 from .core.cache import LayerKVCache, PackKVConfig, PagePool
 from .core.quantization import QuantConfig
 from .core.tiered import TierBuffer, TierSpec, TieredCache
+from .models.transformer import FAMILIES
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -53,9 +54,11 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The reference's stacked params dict (numpy leaves) -> this
-    package's params dict, same keys and layout (``q_norm`` / ``k_norm``
-    ``[L, hd]`` among the attention leaves when ``cfg.qk_norm``)."""
-    if cfg.family != "dense":
+    package's params dict, same keys, layout and dtypes (``q_norm`` /
+    ``k_norm`` ``[L, hd]`` among the attention leaves when
+    ``cfg.qk_norm``; an MoE MLP's f32 router and its nested ``shared``
+    dict; no embedding for frame inputs)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
     def walk(t):
@@ -69,6 +72,12 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     if ("q_norm" in out["layers"]["attn"]) != cfg.qk_norm:
         raise ValueError(f"config {cfg.name} has qk_norm={cfg.qk_norm}, the "
                          "params' attention leaves disagree")
+    if ("router" in out["layers"]["mlp"]) != (cfg.family == "moe"):
+        raise ValueError(f"config {cfg.name} is family {cfg.family!r}, the "
+                         "params' MLP leaves disagree")
+    if ("embed" in out) != (cfg.input_mode != "frames"):
+        raise ValueError(f"config {cfg.name} takes input_mode "
+                         f"{cfg.input_mode!r}, the params' embedding disagrees")
     return out
 
 

@@ -97,7 +97,8 @@ def profile(server: SlotServer, launches: int, cuda: bool, top: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama2-7b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="llama2-7b",
+                    choices=sorted(n for n, c in ARCHS.items() if c.input_mode == "tokens"))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1000)

@@ -7,7 +7,10 @@ PyTorch path on the CPU):
       --requests 6 --max-new 32 --prompt-len 512 --batch 4 --capacity 2048
 
 ``--arch`` takes every ported config: llama2-7b, smollm-135m, minicpm-2b,
-minitron-4b, qwen3-32b. ``--paged`` serves from the page pool with
+minitron-4b, qwen3-32b, qwen2-moe-a2.7b, moonshot-v1-16b-a3b (internvl2-2b
+and hubert-xlarge are refused as the reference refuses them: the VLM's
+patch prefix goes through ``Engine.generate``, the encoder has no
+decode). ``--paged`` serves from the page pool with
 page-reservation admission (``--pool-pages`` below ``batch * capacity /
 page-size`` oversubscribes it, so admission blocks on pages); admission is
 chunked by default (``--prefill-chunk-pages 1``; 0 admits each prompt in
@@ -93,6 +96,8 @@ def main(argv=None) -> int:
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
                          "PyTorch path on the CPU")
     cfg = get_arch(args.arch, smoke=args.smoke)
+    if not cfg.has_decode:
+        raise SystemExit(f"{args.arch} is encoder-only; nothing to serve")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = get_model(cfg).init(gen, cfg)
     ecfg = EngineConfig(capacity=args.capacity, max_batch=args.batch,
@@ -117,6 +122,11 @@ def main(argv=None) -> int:
         print(f"calibrated K tiers {ks.widths}x{ks.counts}; "
               f"V tiers {vs.widths}x{vs.counts}")
 
+    if cfg.input_mode != "tokens":
+        raise SystemExit(
+            f"{args.arch} takes input_mode {cfg.input_mode!r}; the request "
+            "queue carries token prompts only — batch such inputs through "
+            "Engine.generate instead")
     server = SlotServer(engine)
     rng = np.random.default_rng(args.seed)
     # --prefix-cache demo traffic: every request opens with the same

@@ -1,7 +1,8 @@
 """Model registry: one functional interface over the ported families.
 
-The torch port of ``repro/models/registry.py``, dense transformer family
-only (the others arrive with their ports).
+The torch port of ``repro/models/registry.py``: the transformer API
+serves the dense, moe, vlm and encoder families (the recurrent families
+arrive with their ports). An encoder is run by ``transformer.encode``.
 
 ModelApi:
   init(gen, cfg) -> params
@@ -100,7 +101,7 @@ def _transformer_api() -> ModelApi:
     )
 
 
-_FAMILIES = {"dense": _transformer_api}
+_FAMILIES = {family: _transformer_api for family in transformer.FAMILIES}
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:

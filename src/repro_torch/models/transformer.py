@@ -1,4 +1,7 @@
-"""Dense transformer family (llama-style), serving half.
+"""Transformer family (llama-style), serving half: the dense configs,
+MoE (qwen2-moe, moonshot: ``models/moe.py`` in place of the SwiGLU), the
+VLM (internvl2: a patch-embedding prefix) and the encoder (hubert: frame
+inputs, ``encode``).
 
 The torch port of the serving path of ``repro/models/transformer.py``:
 prefill with the reference's tiled flash attention, compress-as-you-prefill
@@ -8,6 +11,11 @@ through ``kernels.ops``. Parameters are a dict whose per-layer tensors are
 stacked on a leading ``n_layers`` axis, as the reference's are; the cache
 is a list of ``LayerKVCache``, one per layer, updated IN PLACE (the
 reference donated it).
+
+An MoE MLP routes only the tokens the reference feeds it: where a call
+site pads its hidden state with zero rows (``decode_step``'s and
+``prefill_chunk``'s ``rows``), ``_apply_mlp`` passes the real positions
+(``moe_apply(n_real=...)``), so the padding takes no expert capacity.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from .layers import (
     resume_attention,
     rmsnorm,
 )
+from .moe import moe_apply, moe_init
 
 # ---------------------------------------------------------------------------
 # init
@@ -63,18 +72,22 @@ _LAYER_SHAPES = {  # name -> (d_in, d_out) as functions of the config
     ("attn", "wk"): lambda c: (c.d_model, c.n_kv_heads * c.hd),
     ("attn", "wv"): lambda c: (c.d_model, c.n_kv_heads * c.hd),
     ("attn", "wo"): lambda c: (c.n_heads * c.hd, c.d_model),
+}
+_MLP_SHAPES = {  # the SwiGLU of every family but moe
     ("mlp", "w_gate"): lambda c: (c.d_model, c.d_ff),
     ("mlp", "w_up"): lambda c: (c.d_model, c.d_ff),
     ("mlp", "w_down"): lambda c: (c.d_ff, c.d_model),
 }
+FAMILIES = ("dense", "moe", "vlm", "encoder")  # the families ported so far
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random bf16 weights from ``gen``, on ``gen``'s device. Same layout
     and scales as the reference's init (normal / sqrt(d_in) matrices,
     unit norms, 0.02 embedding; ``q_norm`` / ``k_norm`` ``[L, hd]`` when
-    ``cfg.qk_norm``); the draws differ (another generator)."""
-    if cfg.family != "dense":
+    ``cfg.qk_norm``; the MoE MLP of ``moe.moe_init``; no embedding for
+    frame inputs); the draws differ (another generator)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = gen.device
     L = cfg.n_layers
@@ -83,7 +96,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
                     "ln2": torch.ones((L, cfg.d_model), dtype=torch.bfloat16,
                                       device=dev),
                     "attn": {}, "mlp": {}}
-    for (grp, name), shape in _LAYER_SHAPES.items():
+    shapes = dict(_LAYER_SHAPES)
+    if cfg.family == "moe":
+        layers["mlp"] = moe_init(gen, cfg, L)
+    else:
+        shapes.update(_MLP_SHAPES)
+    for (grp, name), shape in shapes.items():
         d_in, d_out = shape(cfg)
         w = torch.empty((L, d_in, d_out), dtype=torch.bfloat16, device=dev)
         for i in range(L):
@@ -92,22 +110,52 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     if cfg.qk_norm:
         for name, w in attention_norm_init(cfg.hd, dev).items():
             layers["attn"][name] = w.expand(L, cfg.hd).clone()
-    embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
-                        dtype=torch.float32, device=dev) * 0.02
-    return {
+    params = {
         "layers": layers,
         "final_ln": torch.ones((cfg.d_model,), dtype=torch.bfloat16, device=dev),
         "head": dense_init(gen, cfg.d_model, cfg.vocab, device=dev),
-        "embed": embed.to(torch.bfloat16),
     }
+    if cfg.input_mode in ("tokens", "tokens_patches"):
+        embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                            dtype=torch.float32, device=dev) * 0.02
+        params["embed"] = embed.to(torch.bfloat16)
+    return params
+
+
+def _index(tree: dict, i: int) -> dict:
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 def _layer(params: dict, i: int) -> dict:
-    """Layer ``i``'s parameters (views into the stacked tensors)."""
-    lp = params["layers"]
-    return {"ln1": lp["ln1"][i], "ln2": lp["ln2"][i],
-            "attn": {k: v[i] for k, v in lp["attn"].items()},
-            "mlp": {k: v[i] for k, v in lp["mlp"].items()}}
+    """Layer ``i``'s parameters (views into the stacked tensors; nested
+    dicts, such as an MoE MLP's ``shared``, walked)."""
+    return _index(params["layers"], i)
+
+
+def _apply_mlp(cfg: ArchConfig, p: dict, h: torch.Tensor, site: str,
+               n_real: int | None = None) -> torch.Tensor:
+    """The MLP block's output for hidden states ``h`` (normalized by
+    ``ln2`` first): SwiGLU, or the MoE routing only each batch row's first
+    ``n_real`` positions (the rest are padding)."""
+    x = rmsnorm(h, p["ln2"])
+    if cfg.family == "moe":
+        return moe_apply(p["mlp"], x, cfg, n_real=n_real, site=site)[0]
+    return mlp_apply(p["mlp"], x)
+
+
+def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Hidden states [B, S, D] of a batch by its input mode: token
+    embeddings, the frames themselves (audio stub), or the patch
+    embeddings followed by the token embeddings (VLM stub)."""
+    if cfg.input_mode == "tokens":
+        return params["embed"][batch["tokens"].to(torch.int64)]
+    if cfg.input_mode == "frames":
+        return batch["frames"].to(torch.bfloat16)
+    if cfg.input_mode == "tokens_patches":
+        tok = params["embed"][batch["tokens"].to(torch.int64)]
+        return torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
+    raise ValueError(cfg.input_mode)
 
 
 def _qkv(p: dict, h: torch.Tensor, cfg: ArchConfig, positions):
@@ -128,6 +176,23 @@ def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
     return _logits(params, h[:, -1:])[:, 0]
 
 
+def encode(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Encoder-only forward to the final hidden states [B, S, D] (hubert's
+    'prefill': attention as ``cfg.causal`` says, non-causal for an
+    encoder; no KV cache)."""
+    h = _embed_inputs(params, cfg, batch)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device)
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        q, k, v = _qkv(p, h, cfg, positions)
+        attn = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+        attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+        h = h + attn.to(h.dtype) @ p["attn"]["wo"]
+        h = h + _apply_mlp(cfg, p, h, "encode")
+    return rmsnorm(h, params["final_ln"])
+
+
 # ---------------------------------------------------------------------------
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
@@ -145,11 +210,11 @@ def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
             capacity: int, batch: dict):
     """Process the prompt; returns (last-token logits f32 [B, V], cache).
 
-    batch["tokens"]: int [B, S]. Every layer's K/V is compressed into its
-    cache as soon as the layer is done (compress-as-you-prefill).
+    batch["tokens"]: int [B, S] (a VLM's ``batch["patches"]``: [B, P, D],
+    its positions before the tokens'). Every layer's K/V is compressed
+    into its cache as soon as the layer is done (compress-as-you-prefill).
     """
-    tokens = batch["tokens"].to(torch.int64)
-    h = params["embed"][tokens]
+    h = _embed_inputs(params, cfg, batch)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)
     cache = []
@@ -159,7 +224,7 @@ def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
         attn = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+        h = h + _apply_mlp(cfg, p, h, "prefill")
         layer = alloc_layer_cache(pack_cfg, B, cfg.n_kv_heads, cfg.hd,
                                   capacity, device=h.device)
         cache.append(prefill_cache(layer, k, v))
@@ -232,7 +297,8 @@ def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
     final chunk's GEMMs and attention products have the shape of a full
     chunk's. Rows of a matrix product are independent, so this changes no
     value; on the GPU it keeps cuBLAS from picking other kernels (another
-    summation order) for a short chunk than for the full ones."""
+    summation order) for a short chunk than for the full ones. An MoE MLP
+    routes the chunk's ``Sc`` tokens alone, as the reference does."""
     tokens = tokens.to(torch.int64)
     h = params["embed"][tokens]
     B, Sc, _ = h.shape
@@ -250,7 +316,7 @@ def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
                                 causal=cfg.causal, window=cfg.window)
         attn = attn.transpose(1, 2).reshape(B, h.shape[1], cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+        h = h + _apply_mlp(cfg, p, h, "chunk", n_real=Sc)
     return _head(params, h[:, :Sc]), scratch
 
 
@@ -311,7 +377,7 @@ def _prefill_segment(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
         attn = ctx_attention(q, k_all, v_all, n_ctx, sm_scale)
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+        h = h + _apply_mlp(cfg, p, h, "segment")
         prefill_append(layer, k, v, calibrate=n_ctx == 0)
     return _head(params, h), mini
 
@@ -487,7 +553,8 @@ def decode_step(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
     no value of a product of a given shape; on the GPU cuBLAS sums a row of
     a 4-row product in another order than one of a 20-row product, and
     speculative decode equals plain decode bitwise only when both run the
-    same shapes.
+    same shapes. An MoE MLP routes the first position of each row alone
+    (T = B, as in the reference), so the padding takes no capacity.
     """
     h = _pad_rows(params["embed"][token.to(torch.int64)], rows)
     B = h.shape[0]
@@ -503,7 +570,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
         attn = _attend(layer, q[:, :, 0], sm_scale, backend, n_bucket)
         attn = _pad_rows(attn.reshape(B, 1, cfg.n_heads * cfg.hd), rows)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+        h = h + _apply_mlp(cfg, p, h, "decode", n_real=1)
     return _logits(params, h)[:, 0], cache
 
 
@@ -549,7 +616,7 @@ def verify_steps(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
                                     n_bucket, ahead=j) for j in range(w)], dim=2)
         attn = attn.transpose(1, 2).reshape(B, w, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + mlp_apply(p["mlp"], rmsnorm(h, p["ln2"]))
+        h = h + _apply_mlp(cfg, p, h, "verify")
     hat = torch.argmax(_logits(params, h), -1).to(torch.int32)
     # the leading run of drafts the window's argmaxes confirm, within each
     # row's valid drafts (free rows have lens 1: their junk never commits)

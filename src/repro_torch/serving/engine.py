@@ -186,14 +186,18 @@ class Engine:
     def _calibrate(self, pack_cfg: PackKVConfig) -> PackKVConfig:
         S = self.ecfg.calib_tokens
         rng = np.random.default_rng(0)
-        tokens = torch.as_tensor(rng.integers(0, self.cfg.vocab, (1, S)),
-                                 dtype=torch.int32, device=self.device)
+        batch = {"tokens": torch.as_tensor(rng.integers(0, self.cfg.vocab, (1, S)),
+                                           dtype=torch.int32, device=self.device)}
+        patches = self.cfg.input_mode == "tokens_patches"
+        if patches:  # drawn after the tokens, from the same generator
+            batch["patches"] = self._patches(
+                rng.normal(size=(1, self.cfg.n_patches, self.cfg.d_model)))
         # calibration reads raw K/V from a dense layout
         none_cfg = dataclasses.replace(pack_cfg, policy="none", paged=False)
         blk = pack_cfg.block
-        cap = -(-max(S, blk) // blk) * blk
-        _, cache = self.api.prefill(self.params, self.cfg, none_cfg, cap,
-                                    {"tokens": tokens})
+        cap = max(S + self.cfg.n_patches * patches, blk)
+        cap = -(-cap // blk) * blk
+        _, cache = self.api.prefill(self.params, self.cfg, none_cfg, cap, batch)
         n = int(min(int(c.n_comp.min()) for c in cache))
         n = (n // blk) * blk
         if n == 0:
@@ -208,10 +212,21 @@ class Engine:
             tokens = torch.from_numpy(np.asarray(tokens))
         return tokens.to(device=self.device, dtype=torch.int32)
 
+    def _patches(self, patches) -> torch.Tensor:
+        """Patch embeddings as f32 on the device (the model casts them to
+        bf16; from float64 numpy that is the reference's two roundings)."""
+        if not isinstance(patches, torch.Tensor):
+            patches = torch.from_numpy(np.asarray(patches))
+        return patches.to(device=self.device, dtype=torch.float32)
+
     def prefill(self, batch: dict):
+        """Prefill a batch of equal-length prompts (a VLM's with its
+        ``patches``). Returns (last-token logits [B, V], cache)."""
+        inputs = {"tokens": self._tokens(batch["tokens"])}
+        if "patches" in batch:
+            inputs["patches"] = self._patches(batch["patches"])
         return self.api.prefill(self.params, self.cfg, self.pack_cfg,
-                                self.ecfg.capacity,
-                                {"tokens": self._tokens(batch["tokens"])})
+                                self.ecfg.capacity, inputs)
 
     @property
     def rows(self) -> int:

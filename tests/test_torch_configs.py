@@ -62,12 +62,16 @@ CAP, CALIB = 256, 192
 def test_configs_registered_like_the_reference():
     """Every port config equals the reference's field by field; the
     analytic parameter count too."""
-    assert set(ARCHS) == set(SMOKES) == set(NEW) | {"llama2-7b"}
+    assert set(ARCHS) == set(SMOKES) == set(NEW) | {
+        "llama2-7b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "internvl2-2b",
+        "hubert-xlarge"}
     for name in ARCHS:
         for smoke in (False, True):
             a, b = get_arch(name, smoke), j_get_arch(name, smoke)
             assert dataclasses.asdict(a) == dataclasses.asdict(b), name
             assert a.param_count() == b.param_count() and a.hd == b.hd, name
+            assert a.active_param_count() == b.active_param_count(), name
+            assert a.has_decode == b.has_decode, name
     assert get_arch("smollm-135m").hd == get_arch("minicpm-2b").hd == 64
     assert get_arch("qwen3-32b").n_heads // get_arch("qwen3-32b").n_kv_heads == 8
 

@@ -58,7 +58,9 @@ def test_configs_match_reference():
     from repro.configs import get_arch as j_get_arch
 
     assert set(ARCHS) == set(SMOKES) == {"llama2-7b", "smollm-135m", "minicpm-2b",
-                                         "minitron-4b", "qwen3-32b"}
+                                         "minitron-4b", "qwen3-32b", "qwen2-moe-a2.7b",
+                                         "moonshot-v1-16b-a3b", "internvl2-2b",
+                                         "hubert-xlarge"}
     for name in ARCHS:
         for smoke in (False, True):
             a = dataclasses.asdict(get_arch(name, smoke=smoke))

@@ -428,10 +428,14 @@ def test_k2_k5_other_config_shapes(cuda, G, D, widths, counts):
     empty): within tolerance of their plain versions, bitwise equal to
     themselves, K5 bitwise equal to K2 on the gathered view at pages 64 and
     256, and K2 over a 512-token bucket view equal to K2 over the capacity."""
-    gen = torch.Generator(device=cuda).manual_seed(G * 1000 + D)
-    spec = tt.TierSpec(widths, counts, 8)
-    cache = _random_cache(gen, 4, 3, D, 1024, spec, (1024, 0, 300, 700), cuda)
-    q = torch.randn((4, 3 * G, D), generator=gen, device=cuda)
+    _k2_k5_shape_checks(cuda, G, 3, D, tt.TierSpec(widths, counts, 8),
+                        seed=G * 1000 + D)
+
+
+def _k2_k5_shape_checks(cuda, G, Hkv, D, spec, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    cache = _random_cache(gen, 4, Hkv, D, 1024, spec, (1024, 0, 300, 700), cuda)
+    q = torch.randn((4, Hkv * G, D), generator=gen, device=cuda)
     n, sm = cache.n_comp, D ** -0.5
     got = fused_packed_attention(q, cache.k, cache.v, n, sm)
     again = fused_packed_attention(q, cache.k, cache.v, n, sm)
@@ -1072,3 +1076,88 @@ def test_stream_extend_device_equals_cpu(cuda, mode):
     (df, dd), (cf, cd) = dev.serialize(), cpu.serialize()
     assert dd == cd and torch.equal(df.cpu(), cf)
     assert dev.total_bits() == cpu.total_bits()
+
+
+# ---------------------------------------------------------------------------
+# the MoE family, the VLM: K2/K5 at their decode shapes, routing, paged
+# ---------------------------------------------------------------------------
+
+
+def _full_width_engine(name, n_layers, cuda, **ekw):
+    """An engine of ``name`` at full width, cut to ``n_layers`` layers
+    (random weights, calibrated)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, EngineConfig
+
+    cfg = dataclasses.replace(get_arch(name), n_layers=n_layers)
+    params = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(1), cfg)
+    return cfg, Engine(cfg, params, tc.PackKVConfig(),
+                       EngineConfig(capacity=2048, max_batch=4, **ekw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "internvl2-2b"])
+def test_k2_k5_moe_and_vlm_shapes(cuda, name):
+    """K2 and K5 at qwen2-moe-a2.7b's decode shape (B=4, H_kv=16, G=1,
+    D=128) and internvl2-2b's (H_kv=8, G=2) under the config's calibrated
+    spec (two layers at full width): the checks of the other configs'
+    shapes."""
+    cfg, eng = _full_width_engine(name, 2, cuda)
+    spec = eng.pack_cfg.k_spec_static
+    G = cfg.n_heads // cfg.n_kv_heads
+    assert (cfg.n_kv_heads, G, cfg.hd) in ((16, 1, 128), (8, 2, 128))
+    _k2_k5_shape_checks(cuda, G, cfg.n_kv_heads, cfg.hd, spec, seed=cfg.n_kv_heads)
+    vspec = eng.pack_cfg.v_spec_static
+    if vspec != spec:
+        _k2_k5_shape_checks(cuda, G, cfg.n_kv_heads, cfg.hd, vspec, seed=G)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,E,k", [(4, 60, 4), (20, 60, 4), (256, 60, 4), (20, 64, 6)])
+def test_moe_routing_on_card_equals_cpu(cuda, T, E, k):
+    """``moe.route`` on the card and on the CPU from the same f32 logits:
+    top-k indices, positions, keep mask and slots equal; the logits are
+    skewed so the capacity binds, and rows of exact ties go to the lower
+    expert index on both."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=cuda).manual_seed(T + E)
+    logits = torch.randn((T, E), generator=gen, device=cuda)
+    logits += torch.linspace(8.0, 0.0, E, device=cuda)
+    logits[::3] = torch.round(logits[::3] * 2) / 2  # exact ties in every third row
+    logits[1] = 0.0
+    card, cpu = moe.route(logits, E, k), moe.route(logits.cpu(), E, k)
+    assert card.C == cpu.C == moe.capacity(T, E, k)
+    for f in ("idx", "pos", "keep", "slot"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert card.idx[1].tolist() == list(range(k))  # all tied: the lowest experts
+    if T >= 20:
+        assert not bool(card.keep.all())  # the capacity binds
+
+
+@pytest.mark.gpu
+def test_moe_paged_equals_dense_full_width(cuda):
+    """qwen2-moe-a2.7b at full width, two layers: chunked admission through
+    paged storage (pages of 256, K5) gives every request's tokens bitwise
+    equal to dense storage (K2), each kernel launched once a layer and
+    decode step."""
+    import dataclasses
+
+    from repro_torch.serving import Engine, Request, SlotServer
+
+    cfg, dense = _full_width_engine("qwen2-moe-a2.7b", 2, cuda, prefill_chunk_pages=1)
+    paged = Engine(cfg, dense.params, dense.pack_cfg, dataclasses.replace(
+        dense.ecfg, calibrate=False, paged=True, page_size=256))
+    outs = []
+    for eng, kernel in ((dense, fused_packed_attention), (paged, fused_packed_attention_paged)):
+        server = SlotServer(eng)
+        rng = np.random.default_rng(2)
+        for i, n in enumerate((300, 700, 520, 260, 900)):
+            server.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab, n), max_new=24))
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        outs.append({r.rid: list(r.output) for r in server.run()})
+        assert kernel.launches == cfg.n_layers * server.stats.decode_steps > 0
+    assert outs[0] == outs[1]
