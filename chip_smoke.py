@@ -72,8 +72,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bitwise equal, and the wall time per step of steady decode launches,
      dense and paged in turns.
   6. serve_spec - speculative decode (spec_k 4: verify passes over windows
-     of 5) on the serve phases' engines and requests, 128 new tokens each
-     (cut from 160 to keep the phase near 90 s), in four runs: dense with the default n-gram drafter, dense with
+     of 5) on the serve phases' engines and requests, 64 new tokens each
+     (cut from 160, to pay for the recurrent phases), in four runs: dense with the default n-gram drafter, dense with
      a drafter replaying the serve phase's outputs with every third
      proposal wrong (full, partial and zero acceptance), dense with a
      drafter always wrong (zero acceptance: the backoff), paged (the
@@ -189,11 +189,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      1280): encode of 2 x 1024 random frames: [2, 1024, 1280], finite;
      one call's device time by CUDA events.
 
-Then the kernels line (K2's launches summed over the dense serve phases,
-serve_spec's, serve_preempt's, serve_session's, serve_moe's and
-serve_vlm's dense runs included, K5's over the paged, paged speculative,
-prefix, paged preempt, session, fault and serve_moe paged ones) and,
-last, {"ok": true, "device": {...}}.
+  16. serve_rwkv - rwkv6-1.6b at full width and depth (24 layers, d_model
+     2048, 32 WKV heads of 64, vocab 65,536): SlotServer, 4 slots, chunked
+     admission (pages of 256), 6 requests (prompts 320/700/1000/450/260/
+     900, four with a sub-chunk WKV tail), 64 new tokens each: every
+     request bitwise equal to its solo control at the server's height
+     (``solo``), the same traffic through monolithic admission bitwise
+     equal, and one 1000-token admission's logits and state row equal
+     chunked and monolithic. No kernel (no KV cache).
+  17. serve_rglru - recurrentgemma-9b at full width and depth (38 layers,
+     d_model 4096, 16 heads over 1 kv head of 256, window 2048, LRU width
+     4096, vocab 256,000), policy packkv calibrated over the window, 4
+     slots, chunked admission: 5 requests (prompts 2048/700/450/900/260,
+     200 new tokens for the first, whose window rings flush twice over
+     their oldest blocks, 32 for the others): K2 once an attention layer
+     and decode step at G = 16, D = 256; each request bitwise equal to its
+     solo control; the 2048-token admission chunked == monolithic
+     bitwise. Then K2 and K5 (pages 64 and 256) at that decode shape under
+     the calibrated spec, held and timed as in the kernel phases.
+
+Each phase's seconds follow it on a line of their own ("phase_seconds"),
+and the total before the card's line. Then the kernels line (K2's
+launches summed over the dense serve phases, serve_spec's,
+serve_preempt's, serve_session's, serve_moe's, serve_vlm's and
+serve_rglru's dense runs included, K5's over the paged, paged
+speculative, prefix, paged preempt, session, fault and serve_moe paged
+ones) and, last, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -212,8 +233,20 @@ TOL = dict(rtol=1e-5, atol=1e-4)
 SPIN_CYCLES = 4_000_000  # ~2 ms of the card's clock
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def timed(phase, *args):
+    """Run ``phase(*args)``; print its seconds on a line of their own."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    emit({"phase_seconds": phase.__name__.removeprefix("phase_"),
+          "s": time.perf_counter() - t0})
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -360,7 +393,7 @@ def launch_shape(cache, lengths, G: int, L: int, paged: bool) -> dict:
     from repro_torch.kernels.packed_attention import SPAN, kernel_smem_bytes
 
     h_kv = cache.k.scale.shape[1]  # the dense cache
-    gm = next(m for m in (1, 2, 4, 8) if G <= m)  # the instantiation's group bound
+    gm = next(m for m in (1, 2, 4, 8, 16) if G <= m)  # the instantiation's group bound
     key = f"packed_attention_span_kernel<{str(paged).lower()},{gm}>"
     return {"blocks": len(lengths) * h_kv * -(-L // SPAN),
             "live_blocks": h_kv * sum(-(-min(x, L) // SPAN) for x in lengths),
@@ -389,7 +422,13 @@ def tier_launches(scores: bool, spec, G: int, L: int, lengths, h_kv: int,
             for w, c in zip(spec.widths, spec.counts)]
 
 
-def phase_kernel(engines: dict, device) -> dict:
+def k2_row(sname: str, shape: str, B: int, h_kv: int, G: int, D: int, ks, vs,
+           gen, flush) -> dict:
+    """K2 at one decode shape (2048-token bucket, the ragged LENGTHS) and
+    one (K, V) spec: held against its plain versions (tile loop and split
+    structure), bitwise equal to itself and over a 1024-token bucket view,
+    timed beside the plain version, the byte bound and SDPA over the
+    dequantized cache. Emits and returns the row."""
     import torch
 
     from repro_torch.core import cache as tc
@@ -400,11 +439,72 @@ def phase_kernel(engines: dict, device) -> dict:
         fused_packed_attention_torch,
     )
 
+    device = gen.device
+    lengths = LENGTHS
+    L = 2048
+    cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
+    q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
+    sm = D ** -0.5
+    n = cache.n_comp
+    got = fused_packed_attention(q, cache.k, cache.v, n, sm)
+    again = fused_packed_attention(q, cache.k, cache.v, n, sm)
+    torch.cuda.synchronize()
+    want = fused_packed_attention_torch(q, cache.k, cache.v, n, sm)
+    err = 0.0
+    for g, a, w in zip(got, again, want):
+        check(torch.equal(g, a), f"{sname}/{shape}: two launches differ")
+        err = max(err, float((g - w).abs().max()))
+    held_to(got, want)
+    check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
+               and (got[2][0] == 0).all()),
+          f"{sname}/{shape}: the empty row is not o = 0, m = -1e30, l = 0")
+    # the plain version with the kernel's split structure
+    split = fused_packed_attention_split_torch(q, cache.k, cache.v, n, sm)
+    held_to(got, split)
+    err_split = max(float((g - w).abs().max()) for g, w in zip(got, split))
+    # a 1024-token bucket view == the full 2048 capacity, bitwise, when
+    # every row's count fits the bucket
+    n_half = torch.clamp(n, max=L // 2)
+    view = tc.slice_compressed(cache, L // 2)
+    sliced = fused_packed_attention(q, view.k, view.v, n_half, sm)
+    full = fused_packed_attention(q, cache.k, cache.v, n_half, sm)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(sliced, full)),
+          f"{sname}/{shape}: K2 over a {L // 2}-token bucket != K2 over {L}")
+    ms = time_ms(lambda: fused_packed_attention(q, cache.k, cache.v, n, sm), flush)
+    plain_ms = time_ms(
+        lambda: fused_packed_attention_torch(q, cache.k, cache.v, n, sm), flush)
+    # yardstick: uncompressed attention over the same K/V in bf16
+    kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2)
+    vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2)
+    kd, vd = (x.repeat_interleave(G, dim=1).contiguous() for x in (kd, vd))
+    qb = q.to(torch.bfloat16)[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
+    n_rows = [min(x, L) for x in lengths]
+    nbytes = kernel_bytes(cache, n_rows, G)
+    flops = kernel_flops(cache, n_rows, G)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    row = {"phase": "kernel", "spec": sname, "shape": shape, "B": B,
+           "H_kv": h_kv, "G": G, "D": D, "L": L, "n_comp": list(lengths),
+           "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+           "max_abs_err": err, "max_abs_err_vs_split": err_split,
+           "bitwise_repeat": True, "bitwise_sliced_eq_full": True, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "x_bound": ms / max(t_bytes, t_ops), "vs_library": ms / library_ms,
+           **launch_shape(cache, lengths, G, L, paged=False)}
+    emit(row)
+    return row
+
+
+def phase_kernel(engines: dict, device) -> dict:
+    import torch
+
     gen = torch.Generator(device=device).manual_seed(1)
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     flush = lambda: flush_buf.zero_()
-    lengths = LENGTHS
-    L = 2048
     main = None
     for sname in kernel_specs(engines[128]):
         for shape, B, h_kv, G, D in SHAPES:
@@ -412,63 +512,9 @@ def phase_kernel(engines: dict, device) -> dict:
                 continue
             ks, vs = (calibrated(engines, D) if sname == "calibrated"
                       else kernel_specs(engines[128])[sname])
-            cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
-            q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
-            sm = D ** -0.5
-            n = cache.n_comp
-            got = fused_packed_attention(q, cache.k, cache.v, n, sm)
-            again = fused_packed_attention(q, cache.k, cache.v, n, sm)
-            torch.cuda.synchronize()
-            want = fused_packed_attention_torch(q, cache.k, cache.v, n, sm)
-            err = 0.0
-            for g, a, w in zip(got, again, want):
-                check(torch.equal(g, a), f"{sname}/{shape}: two launches differ")
-                err = max(err, float((g - w).abs().max()))
-            held_to(got, want)
-            check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
-                       and (got[2][0] == 0).all()),
-                  f"{sname}/{shape}: the empty row is not o = 0, m = -1e30, l = 0")
-            # the plain version with the kernel's split structure
-            split = fused_packed_attention_split_torch(q, cache.k, cache.v, n, sm)
-            held_to(got, split)
-            err_split = max(float((g - w).abs().max()) for g, w in zip(got, split))
-            # a 1024-token bucket view == the full 2048 capacity, bitwise,
-            # when every row's count fits the bucket
-            n_half = torch.clamp(n, max=L // 2)
-            view = tc.slice_compressed(cache, L // 2)
-            sliced = fused_packed_attention(q, view.k, view.v, n_half, sm)
-            full = fused_packed_attention(q, cache.k, cache.v, n_half, sm)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(sliced, full)),
-                  f"{sname}/{shape}: K2 over a {L // 2}-token bucket != K2 over {L}")
-            ms = time_ms(lambda: fused_packed_attention(q, cache.k, cache.v, n, sm), flush)
-            plain_ms = time_ms(
-                lambda: fused_packed_attention_torch(q, cache.k, cache.v, n, sm), flush)
-            # yardstick: uncompressed attention over the same K/V in bf16
-            kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2)
-            vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2)
-            kd, vd = (x.repeat_interleave(G, dim=1).contiguous() for x in (kd, vd))
-            qb = q.to(torch.bfloat16)[:, :, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
-            n_rows = [min(x, L) for x in lengths]
-            nbytes = kernel_bytes(cache, n_rows, G)
-            flops = kernel_flops(cache, n_rows, G)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-            row = {"phase": "kernel", "spec": sname, "shape": shape, "B": B,
-                   "H_kv": h_kv, "G": G, "D": D, "L": L, "n_comp": list(lengths),
-                   "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
-                   "max_abs_err": err, "max_abs_err_vs_split": err_split,
-                   "bitwise_repeat": True, "bitwise_sliced_eq_full": True, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "x_bound": ms / max(t_bytes, t_ops), "vs_library": ms / library_ms,
-                   **launch_shape(cache, lengths, G, L, paged=False)}
-            emit(row)
+            row = k2_row(sname, shape, B, h_kv, G, D, ks, vs, gen, flush)
             if main is None:
                 main = row
-            del cache, kd, vd
     return main
 
 
@@ -496,7 +542,13 @@ def to_pool(cache, page_size: int, gen):
     return paged
 
 
-def phase_kernel_paged(engines: dict, device) -> dict:
+def k5_rows(shape: str, B: int, h_kv: int, G: int, D: int, ks, vs, pages,
+            gen, flush) -> dict:
+    """K5 at one decode shape over the ragged LENGTHS under a calibrated
+    spec, the cache scattered into a pool of each page size of ``pages``
+    under a shuffled page table: held against its plain version, bitwise
+    equal to itself and to K2 on the gathered dense view; timed at pages
+    256 and 512 as K2 is. Emits each row; returns the page-256 row."""
     import torch
 
     from repro_torch.core import cache as tc
@@ -507,72 +559,82 @@ def phase_kernel_paged(engines: dict, device) -> dict:
         fused_packed_attention_paged_torch,
     )
 
-    gen = torch.Generator(device=device).manual_seed(2)
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    flush = lambda: flush_buf.zero_()
+    device = gen.device
     L = 2048
     lengths = LENGTHS
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    main = None
+    cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
+    q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
+    sm = D ** -0.5
+    n = cache.n_comp
+    kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2)
+    vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2)
+    kd, vd = (x.repeat_interleave(G, dim=1).contiguous() for x in (kd, vd))
+    qb = q.to(torch.bfloat16)[:, :, None, :]
+    for page in pages:
+        paged = to_pool(cache, page, gen)
+        args = (q, paged.k, paged.v, paged.pages.page_table, n, L, sm)
+        k5 = lambda: fused_packed_attention_paged(*args, page_size=page)
+        got, again = k5(), k5()
+        view = tc.gather_paged(paged)
+        k2 = fused_packed_attention(q, view.k, view.v, n, sm)
+        torch.cuda.synchronize()
+        want = fused_packed_attention_paged_torch(*args, page_size=page)
+        err = 0.0
+        for g, a, d, w in zip(got, again, k2, want):
+            check(torch.equal(g, a), f"{shape}, page {page}: two K5 launches differ")
+            check(torch.equal(g, d), f"{shape}, page {page}: K5 != K2 on the gathered view")
+            err = max(err, float((g - w).abs().max()))
+        held_to(got, want)
+        check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
+                   and (got[2][0] == 0).all()),
+              "the empty row's partials are not o = 0, m = -1e30, l = 0")
+        row = {"phase": "kernel_paged", "shape": shape, "page_size": page, "B": B,
+               "H_kv": h_kv, "G": G, "D": D, "n_tokens": L, "n_comp": list(lengths),
+               "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+               "max_abs_err": err, "bitwise_repeat": True,
+               "bitwise_equal_k2_gathered": True,
+               **launch_shape(cache, lengths, G, L, paged=True)}
+        if page >= 256:
+            ms = time_ms(k5, flush)
+            plain_ms = time_ms(
+                lambda: fused_packed_attention_paged_torch(*args, page_size=page), flush)
+            library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
+            n_rows = list(lengths)
+            table_bytes = sum(-(-x // page) for x in n_rows) * 4
+            nbytes = kernel_bytes(cache, n_rows, G) + table_bytes
+            flops = kernel_flops(cache, n_rows, G)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+            row.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "x_bound": ms / max(t_bytes, t_ops),
+                        "vs_library": ms / library_ms})
+        emit(row)
+        if page == 256:
+            main = row
+        del paged, view
+    return main
+
+
+def phase_kernel_paged(engines: dict, device) -> dict:
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
     main = None
     for shape, B, h_kv, G, D in SHAPES:
         if shape == "gqa":
             continue
         ks, vs = calibrated(engines, D)
-        cache = ragged_cache(ks, vs, B, h_kv, D, L, lengths, gen)
-        q = torch.randn((B, h_kv * G, D), generator=gen, device=device)
-        sm = D ** -0.5
-        n = cache.n_comp
-        kd = dequantize_tiered(cache.k, torch.bfloat16).transpose(-1, -2)
-        vd = dequantize_tiered(cache.v, torch.bfloat16).transpose(-1, -2)
-        kd, vd = (x.repeat_interleave(G, dim=1).contiguous() for x in (kd, vd))
-        qb = q.to(torch.bfloat16)[:, :, None, :]
         # llama2-7b: every page size, timed at 256 and 512; the other
         # configs' shapes: pages of 64 and 256, timed at 256
         pages = (64, 128, 256, 512) if shape == "llama2-7b" else (64, 256)
-        for page in pages:
-            paged = to_pool(cache, page, gen)
-            args = (q, paged.k, paged.v, paged.pages.page_table, n, L, sm)
-            k5 = lambda: fused_packed_attention_paged(*args, page_size=page)
-            got, again = k5(), k5()
-            view = tc.gather_paged(paged)
-            k2 = fused_packed_attention(q, view.k, view.v, n, sm)
-            torch.cuda.synchronize()
-            want = fused_packed_attention_paged_torch(*args, page_size=page)
-            err = 0.0
-            for g, a, d, w in zip(got, again, k2, want):
-                check(torch.equal(g, a), f"{shape}, page {page}: two K5 launches differ")
-                check(torch.equal(g, d), f"{shape}, page {page}: K5 != K2 on the gathered view")
-                err = max(err, float((g - w).abs().max()))
-            held_to(got, want)
-            check(bool((got[0][0] == 0).all() and (got[1][0] == -1e30).all()
-                       and (got[2][0] == 0).all()),
-                  "the empty row's partials are not o = 0, m = -1e30, l = 0")
-            row = {"phase": "kernel_paged", "shape": shape, "page_size": page, "B": B,
-                   "H_kv": h_kv, "G": G, "D": D, "n_tokens": L, "n_comp": list(lengths),
-                   "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
-                   "max_abs_err": err, "bitwise_repeat": True,
-                   "bitwise_equal_k2_gathered": True,
-                   **launch_shape(cache, lengths, G, L, paged=True)}
-            if page >= 256:
-                ms = time_ms(k5, flush)
-                plain_ms = time_ms(
-                    lambda: fused_packed_attention_paged_torch(*args, page_size=page), flush)
-                library_ms = time_ms(lambda: sdpa(qb, kd, vd, scale=sm), flush)
-                n_rows = list(lengths)
-                table_bytes = sum(-(-x // page) for x in n_rows) * 4
-                nbytes = kernel_bytes(cache, n_rows, G) + table_bytes
-                flops = kernel_flops(cache, n_rows, G)
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-                row.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                            "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-                            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                            "x_bound": ms / max(t_bytes, t_ops),
-                            "vs_library": ms / library_ms})
-            emit(row)
-            if page == 256 and main is None:
-                main = row
-            del paged, view
-        del cache, kd, vd
+        row = k5_rows(shape, B, h_kv, G, D, ks, vs, pages, gen, flush)
+        if main is None:
+            main = row
     return main
 
 
@@ -852,7 +914,7 @@ class ReplayDrafter:
 
 
 SPEC_K = 4  # drafts a verify pass: windows of 5 (EngineConfig's default)
-SPEC_NEW = 128  # new tokens a request: the first 128 of the plain phases' 160
+SPEC_NEW = 64  # new tokens a request: the first 64 of the plain phases' 160
 
 
 def phase_serve_spec(engine, cfg, dense: dict, paged: dict) -> dict:
@@ -863,8 +925,8 @@ def phase_serve_spec(engine, cfg, dense: dict, paged: dict) -> dict:
     K2 (K5) launched n_layers x (plain steps + 5 x verify passes) times
     and the other kernel never, acceptance within the run's range.
 
-    Cut to keep the phase near 90 s: 128 new tokens a request (the plain
-    phases ran 160; the first 128 are compared)."""
+    Cut to pay for the recurrent phases: 64 new tokens a request (the
+    plain phases ran 160; the first 64 are compared)."""
     import dataclasses
 
     import numpy as np
@@ -1992,6 +2054,241 @@ def phase_encode(device) -> None:
     del params, out
 
 
+# serve_rwkv / serve_rglru: the recurrent families at full width and depth
+RWKV_PROMPTS = (320, 700, 1000, 450, 260, 900)  # 700, 1000, 450, 260: a sequential tail
+RWKV_NEW = 64
+RGLRU_PROMPTS = (2048, 700, 450, 900, 260)
+RGLRU_NEW = (200, 32, 32, 32, 32)  # the 2048-token row flushes at steps 129 and 193
+
+
+def solo(eng, prompt, max_new: int) -> list:
+    """A request run alone at the server's height: admitted as
+    ``SlotServer`` admits it (page-sized chunks, the last fused with the
+    insert; monolithic when the engine's chunks are off or the prompt fits
+    one), in row 0 of a ``max_batch``-row table with the other rows free,
+    decoded a step at a time. Returns its tokens."""
+    import numpy as np
+    import torch
+
+    n = eng.ecfg.max_batch
+    active = [True] + [False] * (n - 1)
+    cache = eng.alloc_slot_cache()
+    S, c = len(prompt), eng.chunk_tokens()
+    if eng.ecfg.prefill_chunk_pages == 0 or S <= c:
+        logits, cache = eng.insert_request(cache, 0, prompt)
+    else:
+        bounds = sorted(set(range(0, S, c)) | {S})
+        scratch = eng.chunk_init(S)
+        for s0, s1 in zip(bounds[:-2], bounds[1:-1]):
+            _, scratch = eng.chunk_step(scratch, prompt[s0:s1], s0)
+        logits, cache = eng.chunk_final(cache, 0, scratch, prompt[bounds[-2]:], bounds[-2])
+    out = [int(torch.argmax(logits))]
+    toks = np.zeros((n, 1), np.int32)
+    while len(out) < max_new:
+        toks[0, 0] = out[-1]
+        lg, cache = eng.decode(cache, toks)
+        cache = eng.mask_free(cache, active)
+        out.append(int(torch.argmax(lg[0])))
+    return out
+
+
+def row_chunked_vs_mono(engine, mono, tokens) -> dict:
+    """One prompt admitted by 256-token chunks on ``engine`` and in one
+    prefill on ``mono`` (the same weights): the last-token logits and every
+    leaf of the admitted state row."""
+    import torch
+
+    from repro_torch.utils import tree_flatten
+
+    S = len(tokens)
+    bounds = list(range(0, S, 256)) + [S]
+    scratch = engine.chunk_init(S)
+    for s0, s1 in zip(bounds[:-2], bounds[1:-1]):
+        _, scratch = engine.chunk_step(scratch, tokens[s0:s1], s0)
+    l_chunk, chunked = engine.chunk_final(engine.alloc_slot_cache(), 0, scratch,
+                                          tokens[bounds[-2]:], bounds[-2])
+    l_mono, whole = mono.insert_request(mono.alloc_slot_cache(), 0, tokens)
+    return {"prompt": S, "chunks": len(bounds) - 1,
+            "logits_max_abs_diff": float((l_mono - l_chunk).abs().max()),
+            "logits_bitwise_equal": bool(torch.equal(l_mono, l_chunk)),
+            "state_bitwise_equal": all(torch.equal(a, b) for a, b in
+                                       zip(tree_flatten(chunked)[0], tree_flatten(whole)[0]))}
+
+
+def recurrent_run(engine, cfg, prompts, news, seed: int):
+    """Serve ``prompts`` (``news`` new tokens each) on a fresh SlotServer,
+    the K2 launch count from 0. Returns (requests by rid, stats, K2
+    launches, wall s, the window caches' n_comp of each row at its
+    retirement)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+    from repro_torch.serving import Request, SlotServer
+
+    rng = np.random.default_rng(seed)
+    server = SlotServer(engine)
+    for i, (n, m) in enumerate(zip(prompts, news)):
+        server.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab, n), max_new=m))
+    retired, free_slot = [], engine.free_slot
+
+    def record(cache, slot):
+        if cfg.window:
+            retired.append(int(cache.cache[0].n_comp[slot]))
+        return free_slot(cache, slot)
+
+    engine.free_slot = record
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    t0 = time.perf_counter()
+    done = {r.rid: r for r in server.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine.free_slot = free_slot
+    check(fused_packed_attention_paged.launches == 0, f"{cfg.name}: K5 launched")
+    check(len(done) == len(prompts), f"{cfg.name}: not every request finished")
+    for r in done.values():
+        out = np.asarray(r.output)
+        check(out.shape == (r.max_new,) and (out >= 0).all() and (out < cfg.vocab).all(),
+              f"{cfg.name} request {r.rid}: output out of the vocabulary")
+    return done, server.stats, fused_packed_attention.launches, wall, retired
+
+
+def phase_serve_rwkv(device) -> dict:
+    """rwkv6-1.6b at full width and depth (24 layers, d_model 2048, 32 WKV
+    heads of 64, vocab 65,536; random bf16 weights from a seeded
+    torch.Generator) through SlotServer, 4 slots, chunked admission of one
+    256-token page a step: 6 requests (prompts 320/700/1000/450/260/900,
+    four with a sub-chunk WKV tail, five longer than a chunk), 64 new
+    tokens each. Every request bitwise equal to its solo control at the
+    server's height; the same requests through monolithic admission
+    bitwise equal; one 1000-token admission's logits and state row equal
+    chunked and monolithic. No kernel: rwkv6 keeps no KV cache."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import Engine
+    from repro_torch.utils import tree_bytes
+
+    t0 = time.perf_counter()
+    cfg, engine = config_engine("rwkv6-1.6b", device, 30, prefill_chunk_pages=1)
+    built = time.perf_counter() - t0
+    check(engine.pack_cfg.k_spec_static is None, "rwkv6 calibrated a KV spec")
+    torch.cuda.reset_peak_memory_stats()
+    news = (RWKV_NEW,) * len(RWKV_PROMPTS)
+    done, s, k2, wall, _ = recurrent_run(engine, cfg, RWKV_PROMPTS, news, 7)
+    check(k2 == 0, f"rwkv6 launched K2 {k2} times")
+    mono = Engine(cfg, engine.params, engine.pack_cfg,
+                  dataclasses.replace(engine.ecfg, calibrate=False, prefill_chunk_pages=0))
+    mdone, ms, _, mwall, _ = recurrent_run(mono, cfg, RWKV_PROMPTS, news, 7)
+    agree = {rid: float(np.mean(np.asarray(r.output) == np.asarray(mdone[rid].output)))
+             for rid, r in done.items()}
+    row_check = row_chunked_vs_mono(engine, mono, done[2].tokens)
+    check(all(a == 1.0 for a in agree.values()) and row_check["logits_bitwise_equal"]
+          and row_check["state_bitwise_equal"],
+          f"rwkv6: chunked != monolithic admission: {agree}, {row_check}")
+    t1 = time.perf_counter()
+    for rid, r in done.items():
+        check(solo(engine, r.tokens, r.max_new) == list(r.output),
+              f"rwkv6 request {rid} differs from its solo control")
+    ctl_s = time.perf_counter() - t1
+    emit({"phase": "serve_rwkv", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "wkv_heads": cfg.wkv_heads, "vocab": cfg.vocab,
+          "weights_gb": cfg.param_count() * 2 / 1e9, "engine_s": built,
+          "requests": len(RWKV_PROMPTS), "prompts": list(RWKV_PROMPTS), "max_new": RWKV_NEW,
+          "decode_steps": s.decode_steps, "prefill_chunks": s.prefill_chunks,
+          "slot_reuses": s.slot_reuses, "wall_s": wall, "decode_s": s.decode_s,
+          "decode_tok_s": (s.tokens_out - s.admitted) / s.decode_s,
+          "monolithic_wall_s": mwall,
+          "monolithic_decode_tok_s": (ms.tokens_out - ms.admitted) / ms.decode_s,
+          "chunked_eq_monolithic": agree, "row_chunked_vs_monolithic": row_check,
+          "bitwise_equal_solo": True, "solo_controls_s": ctl_s,
+          "state_bytes_per_row": tree_bytes(engine.alloc_slot_cache()) // engine.ecfg.max_batch,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    del mono, done, mdone
+    free_engine(engine)
+    return {"launches": 0}
+
+
+def phase_serve_rglru(device) -> dict:
+    """recurrentgemma-9b at full width and depth (38 layers: 12 groups of
+    two RG-LRU blocks and a local-attention block, then 2 RG-LRU blocks;
+    d_model 4096, 16 query heads over 1 kv head of 256, window 2048, LRU
+    width 4096, vocab 256,000; random weights), policy packkv (calibrated
+    over the window), 4 slots, chunked admission: 5 requests (prompts
+    2048/700/450/900/260; 200 new tokens for the 2048-token one, so its
+    rings flush at decode steps 129 and 193 over the two oldest blocks, 32
+    for the others). K2 launched once an attention layer and decode step
+    (G = 16, D = 256), the long row's n_comp at retirement = 2048 + 128;
+    every request bitwise equal to its solo control at the server's
+    height; the 2048-token admission's logits and state row bitwise equal
+    chunked and monolithic.
+    Then K2 and K5 at this shape (B = 4, H_kv = 1, G = 16, D = 256, a
+    2048-token window, the engine's calibrated spec) against their plain
+    versions, timed beside the byte bound and SDPA."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.serving import Engine
+    from repro_torch.utils import tree_bytes
+
+    t0 = time.perf_counter()
+    cfg, engine = config_engine("recurrentgemma-9b", device, 31, prefill_chunk_pages=1)
+    built = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    done, s, k2, wall, retired = recurrent_run(engine, cfg, RGLRU_PROMPTS, RGLRU_NEW, 8)
+    n_attn = cfg.n_layers // 3
+    check(k2 > 0 and k2 == n_attn * s.decode_steps,
+          f"recurrentgemma-9b: K2 launches {k2} != {n_attn} x {s.decode_steps} steps")
+    check(max(retired) == cfg.window + 128,
+          f"recurrentgemma-9b: the long row's n_comp {max(retired)}, not a wrapped "
+          f"{cfg.window + 128}")
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    for rid, r in done.items():
+        check(solo(engine, r.tokens, r.max_new) == list(r.output),
+              f"recurrentgemma-9b request {rid} differs from its solo control")
+    ctl_s = time.perf_counter() - t1
+    mono = Engine(cfg, engine.params, engine.pack_cfg,
+                  dataclasses.replace(engine.ecfg, calibrate=False, prefill_chunk_pages=0))
+    row_check = row_chunked_vs_mono(engine, mono, done[0].tokens)
+    check(row_check["logits_bitwise_equal"] and row_check["state_bitwise_equal"],
+          f"recurrentgemma-9b: chunked != monolithic admission: {row_check}")
+    ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
+    window = engine.alloc_slot_cache()
+    emit({"phase": "serve_rglru", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "attention_layers": n_attn, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd, "window": cfg.window,
+          "lru_dim": cfg.lru_dim, "vocab": cfg.vocab,
+          "weights_gb": cfg.param_count() * 2 / 1e9, "engine_s": built,
+          "k_spec": [ks.widths, ks.counts], "v_spec": [vs.widths, vs.counts],
+          "requests": len(RGLRU_PROMPTS), "prompts": list(RGLRU_PROMPTS),
+          "max_new": list(RGLRU_NEW), "n_comp_at_retirement": sorted(retired),
+          "decode_steps": s.decode_steps, "k2_launches": k2,
+          "prefill_chunks": s.prefill_chunks, "slot_reuses": s.slot_reuses,
+          "wall_s": wall, "decode_s": s.decode_s,
+          "decode_tok_s": (s.tokens_out - s.admitted) / s.decode_s,
+          "bitwise_equal_solo": True, "solo_controls_s": ctl_s,
+          "row_chunked_vs_monolithic": row_check,
+          "window_cache_bytes": tree_bytes(window.cache),
+          "state_bytes": tree_bytes(window), "peak_memory_bytes": peak})
+    del mono, done, window
+    # K2 and K5 at the family's decode shape under its calibrated spec
+    gen = torch.Generator(device=device).manual_seed(9)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    flush = lambda: flush_buf.zero_()
+    B, G = engine.ecfg.max_batch, cfg.n_heads // cfg.n_kv_heads
+    kernel = k2_row("calibrated", cfg.name, B, cfg.n_kv_heads, G, cfg.hd, ks, vs, gen, flush)
+    paged = k5_rows(cfg.name, B, cfg.n_kv_heads, G, cfg.hd, ks, vs, (64, 256), gen, flush)
+    free_engine(engine)
+    return {"launches": k2, "k2": kernel, "k5": paged}
+
+
 def tier_runs(tc_, flat, sliced: bool):
     """(tier, its (payload, mins, shifts) through ``flat``, its channel
     slice of q's head dim if ``sliced`` (K) else None (V, whose w is
@@ -2605,32 +2902,35 @@ def main() -> int:
                      engine.pack_cfg.k_spec_static.counts],
           "v_spec": [engine.pack_cfg.v_spec_static.widths,
                      engine.pack_cfg.v_spec_static.counts]})
-    phase_storage(engine, cfg, card)
+    timed(phase_storage, engine, cfg, card)
     # smollm-135m's engine: its calibrated spec is the kernel phases' D=64
     # one; serve_configs serves it first
     smollm = config_engine("smollm-135m", device, 10, prefill_chunk_pages=0)
     engines = {128: engine, 64: smollm[1]}
 
-    k2 = phase_kernel(engines, device)
-    k5 = phase_kernel_paged(engines, device)
-    serve = phase_serve(engine, cfg, device)
-    serve_paged = phase_serve_paged(engine, cfg, serve)
-    spec = phase_serve_spec(engine, cfg, serve, serve_paged)
+    k2 = timed(phase_kernel, engines, device)
+    k5 = timed(phase_kernel_paged, engines, device)
+    serve = timed(phase_serve, engine, cfg, device)
+    serve_paged = timed(phase_serve_paged, engine, cfg, serve)
+    spec = timed(phase_serve_spec, engine, cfg, serve, serve_paged)
     del serve_paged["engine"]
-    phase_spec_rows(engine, cfg)
-    preempt = phase_serve_preempt(engine, cfg)
-    session = phase_serve_session(engine, cfg)
-    faults = phase_serve_faults(engine, cfg)
-    mv = phase_matvec(engine, device)
-    configs = phase_serve_configs(smollm, device)
+    timed(phase_spec_rows, engine, cfg)
+    preempt = timed(phase_serve_preempt, engine, cfg)
+    session = timed(phase_serve_session, engine, cfg)
+    faults = timed(phase_serve_faults, engine, cfg)
+    mv = timed(phase_matvec, engine, device)
+    configs = timed(phase_serve_configs, smollm, device)
     # qwen3-32b's 65.5 GB of weights need the card to themselves
     del smollm, engines, params
     free_engine(engine)
     del engine
-    prefix = phase_serve_prefix(device)
-    moe_runs = phase_serve_moe(device)
-    vlm = phase_serve_vlm(device)
-    phase_encode(device)
+    prefix = timed(phase_serve_prefix, device)
+    moe_runs = timed(phase_serve_moe, device)
+    vlm = timed(phase_serve_vlm, device)
+    timed(phase_encode, device)
+    timed(phase_serve_rwkv, device)
+    rglru = timed(phase_serve_rglru, device)
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     row = lambda name, source, replaces, k, launches: {
         "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -2642,7 +2942,7 @@ def main() -> int:
         row("fused_packed_attention", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:172", k2,
             serve["launches"] + spec["dense"] + configs["launches"] + preempt["dense"]
-            + session["dense"] + moe_runs["dense"] + vlm["launches"]),
+            + session["dense"] + moe_runs["dense"] + vlm["launches"] + rglru["launches"]),
         row("fused_packed_attention_paged", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:375", k5,
             serve_paged["launches"] + spec["paged"] + prefix["launches"] + preempt["paged"]

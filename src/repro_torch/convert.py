@@ -57,15 +57,36 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     package's params dict, same keys, layout and dtypes (``q_norm`` /
     ``k_norm`` ``[L, hd]`` among the attention leaves when
     ``cfg.qk_norm``; an MoE MLP's f32 router and its nested ``shared``
-    dict; no embedding for frame inputs)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    dict; no embedding for frame inputs; rwkv6's f32 decay LoRA and
+    bonus ``u``; a hybrid model's ``groups`` / ``tail`` (None without
+    trailing blocks) with the f32 LRU leaves)."""
+    if cfg.family not in FAMILIES + ("rwkv6", "hybrid_rglru"):
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def walk(t):
-        return {k: walk(v) if isinstance(v, dict) else tensor_from_numpy(v, device)
+        return {k: walk(v) if isinstance(v, dict) else
+                None if v is None else tensor_from_numpy(v, device)
                 for k, v in t.items()}
 
     out = walk(tree)
+    if ("groups" in out) != (cfg.family == "hybrid_rglru") or \
+            ("u" in out.get("layers", {})) != (cfg.family == "rwkv6"):
+        raise ValueError(f"config {cfg.name} is family {cfg.family!r}, the "
+                         "params' layout disagrees")
+    if cfg.family == "rwkv6":
+        if out["layers"]["wr"].shape[0] != cfg.n_layers:
+            raise ValueError(f"params hold {out['layers']['wr'].shape[0]} "
+                             f"layers, config {cfg.name} has {cfg.n_layers}")
+        return out
+    if cfg.family == "hybrid_rglru":
+        n_groups, n_tail = divmod(cfg.n_layers, 3)
+        tail = out.get("tail")
+        got = (out["groups"]["attn"]["ln"].shape[0],
+               0 if tail is None else tail["ln"].shape[0])
+        if got != (n_groups, n_tail):
+            raise ValueError(f"params hold {got} (groups, tail blocks), config "
+                             f"{cfg.name} has {(n_groups, n_tail)}")
+        return out
     if out["layers"]["ln1"].shape[0] != cfg.n_layers:
         raise ValueError(f"params hold {out['layers']['ln1'].shape[0]} "
                          f"layers, config {cfg.name} has {cfg.n_layers}")

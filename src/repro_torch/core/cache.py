@@ -754,7 +754,8 @@ def _flush_paged(cache: LayerKVCache, idx: torch.Tensor, blk_k, blk_v) -> None:
 
 
 def append_token(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                 rows: list[int] | None = None) -> LayerKVCache:
+                 rows: list[int] | None = None, *, ring: bool = False
+                 ) -> LayerKVCache:
     """Decode-step append at per-row offsets, IN PLACE. k_new/v_new:
     [B,H,1,D].
 
@@ -764,6 +765,13 @@ def append_token(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     when the caller already knows it (``flush_rows``; the counters are the
     same in every layer); None reads it from this cache's counters.
 
+    ``ring``: sliding-window mode (recurrentgemma's local attention). The
+    compressed region is a circular block buffer of ``capacity`` tokens: a
+    flush writes at ``n_comp % capacity``, over the oldest block once the
+    window is full, and ``n_comp`` keeps counting. Decode attention is
+    invariant to the order of its tokens, so callers read the buffer with
+    ``n_valid = min(n_comp, capacity)``. Paged storage has no ring mode.
+
     A paged row at capacity never flushes: an over-capacity flush would
     pop a page the scheduler's reservation never counted. Its residual
     write then lands on the last slot (the clamp), degrading that row's
@@ -771,6 +779,8 @@ def append_token(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     """
     cfg = cache.cfg
     blk = cfg.block
+    if ring and cache.pages is not None:
+        raise ValueError("paged storage has no ring (sliding-window) mode")
     if rows is None:
         rows = flush_rows(cache)
     if rows:
@@ -781,12 +791,16 @@ def append_token(cache: LayerKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
             _flush_paged(cache, idx, blk_k, blk_v)
         elif cfg.policy == "none":
             offs = cache.n_comp[idx].tolist()
+            if ring:
+                offs = [off % cache.capacity for off in offs]
             for r, off in zip(rows, offs):
                 s = max(0, min(off, cache.capacity - blk))  # reference clamp
                 cache.raw_k[r, :, s:s + blk] = cache.resid_k[r, :, :blk]
                 cache.raw_v[r, :, s:s + blk] = cache.resid_v[r, :, :blk]
         else:
             offs = cache.n_comp[idx].tolist()
+            if ring:
+                offs = [off % cache.capacity for off in offs]
             kc, vc = compress_block(blk_k, blk_v, cfg, cache.k.chan_perm[idx],
                                     cache.v.chan_perm[idx])
             append_block_rows(cache.k, kc, offs, rows)

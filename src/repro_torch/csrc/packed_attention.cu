@@ -71,8 +71,15 @@
 //     every page size, and K2 over a bucket view equals K2 over the full
 //     capacity whenever every n_comp fits the bucket.
 //   Two launches are bitwise equal. The arrival counters ([B * H_kv] int32,
-//   zero between launches: the merging block resets its row's) are shared
-//   by the launches of one device, so launches run on one stream at a time.
+//   zero between launches: the merging block resets its row's) belong to
+//   one stream of one device (the wrapper keys them by the current
+//   stream), so launches on two streams at once never share them.
+//   * Group sizes up to 16 (recurrentgemma-9b's local attention: 16 query
+//     heads over one kv head of 256 channels). The per-group registers
+//     (8 scores a lane a group, then 8 weights) are a template bound GM
+//     in {1, 2, 4, 8, 16}; at GM = 16 a thread holds 128 partial scores,
+//     and one block of q (16 KB), p * vscale (16 KB) and a 4-bit K and V
+//     (~42 KB each) takes ~128 KB of shared memory, one block an SM.
 // Left on the table: the loads and the decode of a block run one after the
 // other and every block of the first shape's single wave loads at once, so
 // the decode does not overlap the copies; at llama2's G = 1 the work is a
@@ -84,7 +91,7 @@
 #include "staging.cuh"  // cp.async staging, decode_chunk (K1), SPAN
 
 #define MAX_TIERS 6
-#define MAX_G 8
+#define MAX_G 16
 #define MAX_D 256
 static_assert(SPAN == NTHREADS, "the scores keep one token per thread");
 #define NEG_INF (-1e30f)
@@ -507,13 +514,14 @@ __global__ void __launch_bounds__(NTHREADS)
 
 static int align16(int x) { return (x + 15) & ~15; }
 
-// The current device's opt-in shared memory a block, less the kernel's
-// static shared memory (read on every launch: it is one attribute query).
+// The current device's opt-in shared memory a block, less room for the
+// kernel's static shared memory (under 1.4 KB at GM = 16; read on every
+// launch: it is one attribute query).
 static int max_smem() {
   int dev = 0, v = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return v - 1024;
+  return v - 2048;
 }
 
 // The dynamic shared memory of a launch: the fixed parts, K's tiers, then
@@ -583,8 +591,10 @@ static int launch(const PackedAttnParams* p, void* stream) {
     e = launch_span<PAGED, 2>(*p, s, grid, st);
   else if (p->G <= 4)
     e = launch_span<PAGED, 4>(*p, s, grid, st);
-  else
+  else if (p->G <= 8)
     e = launch_span<PAGED, 8>(*p, s, grid, st);
+  else
+    e = launch_span<PAGED, 16>(*p, s, grid, st);
   return static_cast<int>(e);
 }
 

@@ -28,7 +28,7 @@ NEG_INF = -1e30
 DEFAULT_TILE_L = 256
 SPAN = 256  # tokens per block of the CUDA kernel's split (csrc SPAN)
 MAX_TIERS = 6  # csrc/packed_attention.cu limits
-MAX_G = 8
+MAX_G = 16
 MAX_D = 256
 
 
@@ -359,12 +359,17 @@ _counters: dict = {}
 def _arrivals(device, n: int, owner: str = "attention") -> torch.Tensor:
     """The span blocks' arrival counters for ``n`` rows: zero between
     launches (the block that merges a row resets its counter), one tensor
-    per kernel family (``owner``: K2/K5 here, K4/K7 in vpack_matvec.py) and
-    device, so launches on one stream at a time."""
-    c = _counters.get((owner, device))
+    per kernel family (``owner``: K2/K5 here, K4/K7 in vpack_matvec.py),
+    device and stream. Launches on one stream run one after another, so
+    they may share a tensor; launches on two streams at once each have
+    their own. A tensor is made on its stream (its zeros are written
+    there, before the stream's first launch reads them)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (owner, device, stream)
+    c = _counters.get(key)
     if c is None or c.numel() < n:
-        c = _counters[owner, device] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                                   device=device)
+        c = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=device)
     return c
 
 

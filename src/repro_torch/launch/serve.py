@@ -6,11 +6,14 @@ PyTorch path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \
       --requests 6 --max-new 32 --prompt-len 512 --batch 4 --capacity 2048
 
-``--arch`` takes every ported config: llama2-7b, smollm-135m, minicpm-2b,
-minitron-4b, qwen3-32b, qwen2-moe-a2.7b, moonshot-v1-16b-a3b (internvl2-2b
-and hubert-xlarge are refused as the reference refuses them: the VLM's
-patch prefix goes through ``Engine.generate``, the encoder has no
-decode). ``--paged`` serves from the page pool with
+``--arch`` takes every config: llama2-7b, smollm-135m, minicpm-2b,
+minitron-4b, qwen3-32b, qwen2-moe-a2.7b, moonshot-v1-16b-a3b, and the
+recurrent rwkv6-1.6b and recurrentgemma-9b (internvl2-2b and hubert-xlarge
+are refused as the reference refuses them: the VLM's patch prefix goes
+through ``Engine.generate``, the encoder has no decode). The recurrent
+families refuse ``--paged``, ``--prefix-cache``, ``--spec-decode``,
+``--preempt`` and ``--session-cache`` with the reference's messages;
+recurrentgemma-9b's window caches take the window as their capacity. ``--paged`` serves from the page pool with
 page-reservation admission (``--pool-pages`` below ``batch * capacity /
 page-size`` oversubscribes it, so admission blocks on pages); admission is
 chunked by default (``--prefill-chunk-pages 1``; 0 admits each prompt in
@@ -98,8 +101,14 @@ def main(argv=None) -> int:
     cfg = get_arch(args.arch, smoke=args.smoke)
     if not cfg.has_decode:
         raise SystemExit(f"{args.arch} is encoder-only; nothing to serve")
+    api = get_model(cfg)
+    if args.session_cache and api.evacuate_slot is None:
+        raise SystemExit(
+            f"{args.arch} (family {cfg.family!r}) cannot serve "
+            "--session-cache: its recurrent slot state has no "
+            "evacuate/restore ops to park through — drop --session-cache")
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = get_model(cfg).init(gen, cfg)
+    params = api.init(gen, cfg)
     ecfg = EngineConfig(capacity=args.capacity, max_batch=args.batch,
                         backend=args.backend, device=args.device,
                         paged=args.paged, page_size=args.page_size,
@@ -203,9 +212,16 @@ def main(argv=None) -> int:
           + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)
           + f"; {where})")
     comp = tree_bytes(server.cache)
+    if cfg.family == "rwkv6":
+        print(f"recurrent state bytes ({args.batch} rows): {comp:,}")
+        return 0
+    kv_layers, cap = cfg.n_layers, args.capacity
+    if cfg.family == "hybrid_rglru":  # the window caches alone
+        kv_layers, cap = cfg.n_layers // 3, cfg.window
+        comp = tree_bytes(server.cache.cache)
     tokens = (engine.pack_cfg.pool_pages * args.page_size if args.paged
-              else args.batch * args.capacity)
-    raw = cfg.n_layers * 2 * tokens * cfg.n_kv_heads * cfg.hd * 2
+              else args.batch * cap)
+    raw = kv_layers * 2 * tokens * cfg.n_kv_heads * cfg.hd * 2
     print(f"cache bytes ({tokens} tokens of storage): {comp:,} vs raw bf16 "
           f"{raw:,} -> {raw / comp:.2f}x smaller")
     return 0

@@ -33,6 +33,23 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+PREFILL_ROWS = 256  # positions a slab of the recurrent families' prefill products
+
+
+def mm_slabs(x: torch.Tensor, w: torch.Tensor, rows: int | None) -> torch.Tensor:
+    """x [B, T, K] @ w [K, N] in slabs of ``rows`` positions, the last
+    zero-padded to ``rows`` (None: one product). Rows of a product are
+    independent, so this changes no value; on the GPU a product's rows
+    sum in another order at another row count, and slabs give a
+    monolithic prefill and the chunks of a chunked one the same shapes."""
+    T = x.shape[1]
+    if rows is None or T == rows:
+        return x @ w
+    Tp = -(-T // rows) * rows
+    xp = torch.nn.functional.pad(x, (0, 0, 0, Tp - T))
+    return torch.cat([xp[:, s:s + rows] @ w for s in range(0, Tp, rows)], 1)[:, :T]
+
+
 def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
     g = x @ w_gate
     u = x @ w_up

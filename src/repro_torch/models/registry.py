@@ -1,8 +1,13 @@
-"""Model registry: one functional interface over the ported families.
+"""Model registry: one functional interface over every family.
 
 The torch port of ``repro/models/registry.py``: the transformer API
-serves the dense, moe, vlm and encoder families (the recurrent families
-arrive with their ports). An encoder is run by ``transformer.encode``.
+serves the dense, moe, vlm and encoder families (an encoder is run by
+``transformer.encode``), ``rwkv6`` and ``rglru`` the two recurrent ones.
+The recurrent families' O(1) state has no pages, no verify pass and no
+evacuate / restore ops: their ``decode_multi``, ``decode_verify``, prefix
+ops, ``evacuate_slot`` and ``restore_slot`` are None and
+``supports_paged`` is False, and the engine refuses the modes that need
+them.
 
 ModelApi:
   init(gen, cfg) -> params
@@ -15,7 +20,8 @@ ModelApi:
   reset_slot(cache, slot) / mask_free(cache, active) -> cache
   decode_multi(params, cfg, cache, token, active, n_steps, eos_id,
                t_max=..., backend=..., n_bucket=..., rows=...)
-      -> (tokens [t_max, B], n_exec, cache)
+      -> (tokens [t_max, B], n_exec, cache) (None: the engine decodes a
+      step a launch)
   decode_verify(params, cfg, cache, tokens, lens, active, backend=...,
                 n_bucket=...) -> (hat [B, w], n_accept [B], cache): one
       speculative verify pass over a window of w = tokens.shape[1]
@@ -49,7 +55,7 @@ import dataclasses
 from typing import Callable
 
 from ..configs.base import ArchConfig
-from . import transformer
+from . import rglru, rwkv6, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,19 +67,19 @@ class ModelApi:
     prefill_into_slot: Callable
     reset_slot: Callable
     mask_free: Callable
-    decode_multi: Callable
-    decode_verify: Callable | None
     prefill_chunk_init: Callable
     prefill_chunk: Callable
     prefill_chunk_insert: Callable
-    prefill_prefix: Callable
-    prefix_chunk_bounds: Callable
-    prefix_chunk_init: Callable
-    prefix_chunk: Callable
-    prefix_chunk_insert: Callable
-    evacuate_slot: Callable | None
-    restore_slot: Callable | None
-    supports_paged: bool
+    decode_multi: Callable | None = None
+    decode_verify: Callable | None = None
+    prefill_prefix: Callable | None = None
+    prefix_chunk_bounds: Callable | None = None
+    prefix_chunk_init: Callable | None = None
+    prefix_chunk: Callable | None = None
+    prefix_chunk_insert: Callable | None = None
+    evacuate_slot: Callable | None = None
+    restore_slot: Callable | None = None
+    supports_paged: bool = False
 
 
 def _transformer_api() -> ModelApi:
@@ -101,13 +107,44 @@ def _transformer_api() -> ModelApi:
     )
 
 
+def _rwkv_api() -> ModelApi:
+    return ModelApi(
+        init=rwkv6.init_params,
+        prefill=rwkv6.prefill,
+        decode_step=rwkv6.decode_step,
+        alloc_cache=lambda cfg, pack_cfg, batch, capacity, device="cuda":
+            rwkv6.alloc_state(cfg, batch, device),
+        prefill_into_slot=rwkv6.prefill_into_slot,
+        reset_slot=rwkv6.reset_state_slot,
+        mask_free=rwkv6.mask_free_rows,
+        prefill_chunk_init=rwkv6.prefill_chunk_init,
+        prefill_chunk=rwkv6.prefill_chunk,
+        prefill_chunk_insert=rwkv6.prefill_chunk_insert,
+    )
+
+
+def _rglru_api() -> ModelApi:
+    return ModelApi(
+        init=rglru.init_params,
+        prefill=rglru.prefill,
+        decode_step=rglru.decode_step,
+        alloc_cache=lambda cfg, pack_cfg, batch, capacity, device="cuda":
+            rglru.alloc_state(cfg, pack_cfg, batch, device),
+        prefill_into_slot=rglru.prefill_into_slot,
+        reset_slot=rglru.reset_state_slot,
+        mask_free=rglru.mask_free_rows,
+        prefill_chunk_init=rglru.prefill_chunk_init,
+        prefill_chunk=rglru.prefill_chunk,
+        prefill_chunk_insert=rglru.prefill_chunk_insert,
+    )
+
+
 _FAMILIES = {family: _transformer_api for family in transformer.FAMILIES}
+_FAMILIES.update(rwkv6=_rwkv_api, hybrid_rglru=_rglru_api)
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
     try:
         return _FAMILIES[cfg.family]()
     except KeyError:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (see ROADMAP.md)"
-        ) from None
+        raise ValueError(f"unknown family {cfg.family!r}") from None

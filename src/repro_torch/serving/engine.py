@@ -55,6 +55,13 @@ optional disk spill and TTL); a returning turn restores it and ingests
 only its new suffix, teacher-forced through the decode launches.
 Cancellation, deadlines and a deterministic ``FaultPlan`` retire work
 through the same paths. Meshes are not ported yet (ROADMAP.md).
+
+Every family serves through this one engine: the recurrent ones (rwkv6,
+hybrid_rglru) admit each request by a B=1 prefill (or its chunks) written
+into the slot's state row and decode a step a launch; their O(1) state has
+no pages, no verify pass and no evacuate / restore ops, so paged storage,
+the prefix cache, speculative decode, preemption and the session cache
+refuse them at build, with the reference's messages.
 """
 from __future__ import annotations
 
@@ -139,8 +146,11 @@ class Engine:
         self.api = get_model(cfg)
         if ecfg.prefix_cache:
             if self.api.prefill_prefix is None:
-                raise ValueError(f"family {cfg.family!r} cannot serve "
-                                 "--prefix-cache: it has no KV pages to share")
+                raise ValueError(
+                    f"family {cfg.family!r} cannot serve --prefix-cache: its "
+                    "recurrent decode state has no page-addressable KV pages "
+                    "to share — drop --prefix-cache (plain chunked admission "
+                    "still applies)")
             if not ecfg.paged:
                 raise ValueError("--prefix-cache requires --paged: shared "
                                  "prefixes live in the refcounted page pool")
@@ -153,8 +163,11 @@ class Engine:
             raise ValueError(f"spec_k must be >= 0, got {ecfg.spec_k}")
         if ecfg.spec_decode:
             if self.api.decode_verify is None:
-                raise ValueError(f"family {cfg.family!r} cannot serve "
-                                 "--spec-decode: it has no verify pass")
+                raise ValueError(
+                    f"family {cfg.family!r} cannot serve --spec-decode: its "
+                    "recurrent state update is sequential per token, so "
+                    "there is no batched q_len=k verify pass to amortize "
+                    "the weights-read over — drop --spec-decode")
             if ecfg.spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {ecfg.spec_k}")
         if ecfg.session_cache and cfg.window:
@@ -164,12 +177,15 @@ class Engine:
                 "parked-trace identity the session key relies on")
         if (ecfg.preempt or ecfg.session_cache) and self.api.evacuate_slot is None:
             feature = "--preempt" if ecfg.preempt else "--session-cache"
-            raise ValueError(f"family {cfg.family!r} cannot serve {feature}: "
-                             "it has no evacuate/restore ops")
+            raise ValueError(
+                f"family {cfg.family!r} cannot serve {feature}: its "
+                "recurrent slot state has no evacuate/restore ops to "
+                f"swap through — drop {feature}")
         if ecfg.paged:
             if not self.api.supports_paged:
                 raise ValueError(f"family {cfg.family!r} cannot serve paged: "
-                                 "its decode state is not page-addressable")
+                                 "its recurrent decode state is not "
+                                 "page-addressable")
             if ecfg.capacity % ecfg.page_size:
                 raise ValueError(f"capacity {ecfg.capacity} not a multiple of "
                                  f"page_size {ecfg.page_size}")
@@ -178,9 +194,13 @@ class Engine:
             pack_cfg = dataclasses.replace(pack_cfg, paged=True,
                                            page_size=ecfg.page_size,
                                            pool_pages=pool_pages)
+        # a multi-step launch, where the family has one (the recurrent
+        # families decode a step a launch)
+        self._decode_multi = self.api.decode_multi
+        # rwkv6 keeps no KV cache: nothing to calibrate
         self.pack_cfg = (self._calibrate(pack_cfg)
                          if ecfg.calibrate and pack_cfg.policy == "packkv"
-                         else pack_cfg)
+                         and cfg.family != "rwkv6" else pack_cfg)
 
     # -- calibration --------------------------------------------------------
     def _calibrate(self, pack_cfg: PackKVConfig) -> PackKVConfig:
@@ -198,7 +218,12 @@ class Engine:
         cap = max(S + self.cfg.n_patches * patches, blk)
         cap = -(-cap // blk) * blk
         _, cache = self.api.prefill(self.params, self.cfg, none_cfg, cap, batch)
-        n = int(min(int(c.n_comp.min()) for c in cache))
+        if self.cfg.family == "hybrid_rglru":
+            # the window caches hold the prompt's last min(S, window) tokens
+            cache = cache.cache
+            n = min(int(min(int(c.n_comp.min()) for c in cache)), self.cfg.window)
+        else:
+            n = int(min(int(c.n_comp.min()) for c in cache))
         n = (n // blk) * blk
         if n == 0:
             return pack_cfg
@@ -270,8 +295,9 @@ class Engine:
     def bucket_for(self, n_max: int) -> int | None:
         """Launch bucket covering ``n_max`` compressed tokens (None = full).
         Paged engines raise the unit to the page size, so every bucket is
-        a whole number of pages."""
-        if not self.ecfg.bucketed:
+        a whole number of pages. The recurrent families take None: their
+        state is O(1) or bounded by the window, with no capacity to cut."""
+        if not self.ecfg.bucketed or not self.api.supports_paged:
             return None
         unit = self.ecfg.bucket_unit
         if self.ecfg.paged:
@@ -1607,9 +1633,10 @@ class SlotServer:
             self._spec_degraded = True
 
     def _decode_plain(self, finished: list[Request]) -> None:
-        """The plain launch: a multi-step chunk or a single step."""
+        """The plain launch: a multi-step chunk or a single step (always a
+        single step where the family has no multi-step launch)."""
         n_steps, n_bucket = self._chunk_plan()
-        if self.engine.ecfg.decode_chunk > 1:
+        if self.engine.ecfg.decode_chunk > 1 and self.engine._decode_multi is not None:
             self._decode_chunk(n_steps, n_bucket, finished)
         else:
             self._decode_single(n_bucket, finished)

@@ -64,7 +64,7 @@ def test_configs_registered_like_the_reference():
     analytic parameter count too."""
     assert set(ARCHS) == set(SMOKES) == set(NEW) | {
         "llama2-7b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "internvl2-2b",
-        "hubert-xlarge"}
+        "hubert-xlarge", "rwkv6-1.6b", "recurrentgemma-9b"}
     for name in ARCHS:
         for smoke in (False, True):
             a, b = get_arch(name, smoke), j_get_arch(name, smoke)

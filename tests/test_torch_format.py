@@ -60,7 +60,8 @@ def test_configs_match_reference():
     assert set(ARCHS) == set(SMOKES) == {"llama2-7b", "smollm-135m", "minicpm-2b",
                                          "minitron-4b", "qwen3-32b", "qwen2-moe-a2.7b",
                                          "moonshot-v1-16b-a3b", "internvl2-2b",
-                                         "hubert-xlarge"}
+                                         "hubert-xlarge", "rwkv6-1.6b",
+                                         "recurrentgemma-9b"}
     for name in ARCHS:
         for smoke in (False, True):
             a = dataclasses.asdict(get_arch(name, smoke=smoke))

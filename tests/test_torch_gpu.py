@@ -1161,3 +1161,168 @@ def test_moe_paged_equals_dense_full_width(cuda):
         outs.append({r.rid: list(r.output) for r in server.run()})
         assert kernel.launches == cfg.n_layers * server.stats.decode_steps > 0
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: K2 at recurrentgemma-9b's shape, the ring, slots
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths,counts", [((4,), (256,)), ((2, 4, 8), (64, 128, 64))])
+def test_k2_k5_recurrentgemma_shape(cuda, widths, counts):
+    """K2 and K5 at recurrentgemma-9b's local-attention decode shape (B=4,
+    H_kv=1, G=16, D=256, a 2048-token window): rows empty, full, partial
+    and counted past the window (the kernel reads at most the window),
+    within tolerance of the plain versions, bitwise equal to themselves,
+    K5 on pages of 256 bitwise equal to K2."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    spec = tt.TierSpec(widths, counts, 8)
+    L = 2048
+    cache = _random_cache(gen, 4, 1, 256, L, spec, (0, L, 700, L), cuda)
+    q = torch.randn((4, 16, 256), generator=gen, device=cuda)
+    sm = 256 ** -0.5
+    past = cache.n_comp.clone()
+    past[3] = L + 320
+    runs = []
+    for n in (cache.n_comp, past):
+        got = fused_packed_attention(q, cache.k, cache.v, n, sm)
+        runs.append(got)
+        again = fused_packed_attention(q, cache.k, cache.v, n, sm)
+        paged = _to_pool(cache, 256, gen)
+        k5 = fused_packed_attention_paged(q, paged.k, paged.v, paged.pages.page_table, n,
+                                          L, sm, page_size=256)
+        torch.cuda.synchronize()
+        want = fused_packed_attention_torch(q, cache.k, cache.v, n, sm)
+        for g, a, p, w in zip(got, again, k5, want):
+            assert torch.equal(g, a) and torch.equal(g, p)
+            torch.testing.assert_close(g, w, **TOL)
+        o, m, l = got
+        assert (o[0] == 0).all() and (m[0] == -1e30).all() and (l[0] == 0).all()
+    # a count past the window reads the window, as the clamped count does
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    with pytest.raises(ValueError, match="group sizes"):
+        fused_packed_attention(torch.randn((4, 17, 256), device=cuda), cache.k, cache.v,
+                               cache.n_comp, sm)
+
+
+@pytest.mark.gpu
+def test_k2_two_streams_at_once(cuda):
+    """Two K2 launches on two streams at once, repeatedly: each equals the
+    same launch alone (the arrival counters are keyed by stream)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    spec = tt.TierSpec((4,), (128,), 8)
+    caches = [_random_cache(gen, 4, 8, 128, 2048, spec, (2048, 1500, 2048, 900), cuda)
+              for _ in range(2)]
+    qs = [torch.randn((4, 32, 128), generator=gen, device=cuda) for _ in range(2)]
+    alone = [fused_packed_attention(q, c.k, c.v, c.n_comp, 0.1) for q, c in zip(qs, caches)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                outs[i].append(fused_packed_attention(qs[i], caches[i].k, caches[i].v,
+                                                      caches[i].n_comp, 0.1))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            assert all(torch.equal(g, a) for g, a in zip(got, alone[i]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["packkv", "none"])
+def test_ring_append_on_card_equals_cpu(cuda, policy):
+    """append_token(ring=True) on the card, past the window twice: every
+    leaf byte-equal to the CPU plain path on the same inputs."""
+    from repro_torch.utils import tree_flatten
+
+    B, H, D, W, R = 3, 2, 128, 256, 128
+    spec = tt.TierSpec((2, 4, 8), (32, 64, 32), 8)
+    cfg = tc.PackKVConfig(policy=policy, residual=R, k_spec_static=spec, v_spec_static=spec)
+    caches = [tc.alloc_layer_cache(cfg, B, H, D, W, device=d) for d in (cuda, "cpu")]
+    rng = np.random.default_rng(9)
+    bf = lambda a, d: torch.from_numpy(a).to(d).to(torch.bfloat16)
+    for row, n in enumerate((256, 100, 0)):
+        if n:
+            k, v = rng.normal(size=(H, n, D)), rng.normal(size=(H, n, D))
+            for c in caches:
+                d = c.n_comp.device
+                tc.insert_prefill(c, row, bf(k, d), bf(v, d))
+    for _ in range(400):
+        s = rng.normal(size=(B, H, 1, D))
+        for c in caches:
+            d = c.n_comp.device
+            tc.append_token(c, bf(s, d), -bf(s, d), ring=True)
+    # five flushes a row: rows 0 and 1 wrap their rings, row 2 fills its
+    assert caches[1].n_comp.tolist() == [W + 320, W + 128, 320]
+    for a, b in zip(tree_flatten(caches[0])[0], tree_flatten(caches[1])[0]):
+        assert torch.equal(a.cpu(), b)
+
+
+def _solo(eng, prompt, max_new):
+    """A request run alone at the server's height: admitted as SlotServer
+    admits it, in row 0 of a ``max_batch``-row table, the other rows free,
+    a decode step at a time."""
+    n = eng.ecfg.max_batch
+    active = [True] + [False] * (n - 1)
+    cache = eng.alloc_slot_cache()
+    S, c = len(prompt), eng.chunk_tokens()
+    if eng.ecfg.prefill_chunk_pages == 0 or S <= c:
+        logits, cache = eng.insert_request(cache, 0, prompt)
+    else:
+        bounds = sorted(set(range(0, S, c)) | {S})
+        scratch = eng.chunk_init(S)
+        for s0, s1 in zip(bounds[:-2], bounds[1:-1]):
+            _, scratch = eng.chunk_step(scratch, prompt[s0:s1], s0)
+        logits, cache = eng.chunk_final(cache, 0, scratch, prompt[bounds[-2]:], bounds[-2])
+    out = [int(torch.argmax(logits))]
+    toks = np.zeros((n, 1), np.int32)
+    while len(out) < max_new:
+        toks[0, 0] = out[-1]
+        lg, cache = eng.decode(cache, toks)
+        cache = eng.mask_free(cache, active)
+        out.append(int(torch.argmax(lg[0])))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n_layers", [("recurrentgemma-9b", 5), ("rwkv6-1.6b", 2)])
+def test_recurrent_slots_equal_solo_full_width(cuda, name, n_layers):
+    """rwkv6-1.6b and recurrentgemma-9b at full width (depth cut): every
+    SlotServer request bitwise equal to its solo control at the server's
+    height, chunked admission bitwise equal to monolithic; rglru launches
+    K2 once an attention layer and decode step, and a 2048-token prompt
+    wraps its rings."""
+    import dataclasses
+
+    from repro_torch.serving import Engine, Request, SlotServer
+
+    cfg, eng = _full_width_engine(name, n_layers, cuda, prefill_chunk_pages=1)
+    mono = Engine(cfg, eng.params, eng.pack_cfg,
+                  dataclasses.replace(eng.ecfg, calibrate=False, prefill_chunk_pages=0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (2048, 300, 700, 517)]
+    news = (200 if cfg.window else 40, 24, 30, 16)
+    outs = []
+    for e in (eng, mono):
+        server = SlotServer(e)
+        for i, (p, m) in enumerate(zip(prompts, news)):
+            server.submit(Request(rid=i, tokens=p, max_new=m))
+        fused_packed_attention.launches = 0
+        outs.append({r.rid: list(r.output) for r in server.run()})
+        want_k2 = cfg.n_layers // 3 * server.stats.decode_steps if cfg.window else 0
+        assert fused_packed_attention.launches == want_k2
+    assert outs[0] == outs[1]
+    for i, (p, m) in enumerate(zip(prompts, news)):
+        assert _solo(eng, p, m) == outs[0][i], i
+    # the 2048-token admission: logits and state row, chunked == monolithic
+    p = prompts[0]
+    scratch = eng.chunk_init(len(p))
+    for s0 in range(0, len(p) - 256, 256):
+        _, scratch = eng.chunk_step(scratch, p[s0:s0 + 256], s0)
+    l_chunk, chunked = eng.chunk_final(eng.alloc_slot_cache(), 0, scratch, p[-256:],
+                                       len(p) - 256)
+    l_mono, whole = mono.insert_request(mono.alloc_slot_cache(), 0, p)
+    assert torch.equal(l_chunk, l_mono) and _leaves_equal(chunked, whole)
