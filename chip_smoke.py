@@ -9,16 +9,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      versions; then every CUDA kernel is built from csrc/ with nvcc.
   1b. storage (after the llama2-7b engine is built) - the paper's storage
      tier, which runs no kernel of its own: every 64-token block of the
-     model's K/V (one 2048-token random prompt prefilled with policy none
-     on dense storage, 32 layers x 32 kv heads, head dim 128: 32,768
+     model's K/V (one 1024-token random prompt prefilled with policy none
+     on dense storage, 32 layers x 32 kv heads, head dim 128: 16,384
      blocks) and of synthetic_kv at the same shape (the llama2-7b-like
      profile, made by two worker processes meanwhile) quantized token-wise
      (K rel 0.1, V rel 0.2), repacked (none, median_v, greedy_joint) and
      bit-packed in pack 8 by CompressedKVStream.extend on the card. Checks:
      unpack(pack(q)) == q and |x - decode| <= scale / 2 (plus the f32
      rounding of x - lo and the quotient) at every value; the payload bits
-     of a re-encode equal the stream's; blocks 0-3 of every head of layers
-     0 and 31 (256 blocks) bitwise equal to the plain CPU path (append, a
+     of a re-encode equal the stream's; blocks 0-1 of every head of layers
+     0 and 31 (128 blocks) bitwise equal to the plain CPU path (append, a
      block at a time: perm, scale / zero, widths, minima, words and the
      serialized stream with its directory) for median_v and greedy_joint.
      Reports the K, V and joint ratios beside KIVI's analytic ratio at the
@@ -58,7 +58,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      n_layers x decode steps; outputs must be finite and in the
      vocabulary. Reports decode tok/s, compressed bytes per token against
      bf16, and each request's agreement with the port's own B=1 generate
-     (not a pass bar: batched and B=1 GEMMs may round differently).
+     over its first 32 tokens (not a pass bar: batched and B=1 GEMMs may
+     round differently).
   5. serve_paged - the same model and requests through the reference's
      paged serving path: a pool of 14 pages of 256 tokens (the first four
      requests reserve all 14, so the sixth blocks on pages while a slot
@@ -72,8 +73,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bitwise equal, and the wall time per step of steady decode launches,
      dense and paged in turns.
   6. serve_spec - speculative decode (spec_k 4: verify passes over windows
-     of 5) on the serve phases' engines and requests, 64 new tokens each
-     (cut from 160, to pay for the recurrent phases), in four runs: dense with the default n-gram drafter, dense with
+     of 5) on the serve phases' engines and requests, 32 new tokens each
+     (cut from 160 to pay for later phases), in four runs: dense with the default n-gram drafter, dense with
      a drafter replaying the serve phase's outputs with every third
      proposal wrong (full, partial and zero acceptance), dense with a
      drafter always wrong (zero acceptance: the backoff), paged (the
@@ -123,7 +124,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      (pages of 256) with the prefix cache, chunked admission (one page a
      step), capacity 2048, 4 slots: 6 requests, each a shared 512-token
      system prompt and a suffix of {320, 700, 200, 450, 260, 900} tokens,
-     64 new tokens each. K5's launch count must equal n_layers x decode
+     32 new tokens each. K5's launch count must equal n_layers x decode
      steps and K2's be 0; 6 lookups, at least 4 hits, 2 pages shared per
      hit; the reserved peak within the suffix-only bound; refcounts
      conserved (free <=> ref == 0) in every layer at the end; every hit's
@@ -164,7 +165,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      full width and depth (24 layers, d_model 2048, 16 heads over 16 kv
      heads, 60 routed experts top-4 and 4 shared, Fe 1408, vocab 151936;
      28.6 GB of bf16), policy packkv, capacity 2048, 4 slots: 6 requests
-     (prompts 320/700/1000/450/260/900, 64 new tokens) in four runs: (a)
+     (prompts 320/700/1000/450/260/900, 32 new tokens) in four runs: (a)
      dense, chunked admission: K2 == n_layers x decode steps, K5 == 0; (b)
      paged (pages of 256), chunked: every token bitwise equal to (a), K5
      == n_layers x decode steps, K2 == 0; (c) dense, spec_k 4, the replay
@@ -192,7 +193,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   16. serve_rwkv - rwkv6-1.6b at full width and depth (24 layers, d_model
      2048, 32 WKV heads of 64, vocab 65,536): SlotServer, 4 slots, chunked
      admission (pages of 256), 6 requests (prompts 320/700/1000/450/260/
-     900, four with a sub-chunk WKV tail), 64 new tokens each: every
+     900, four with a sub-chunk WKV tail), 32 new tokens each: every
      request bitwise equal to its solo control at the server's height
      (``solo``), the same traffic through monolithic admission bitwise
      equal, and one 1000-token admission's logits and state row equal
@@ -207,6 +208,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      solo control; the 2048-token admission chunked == monolithic
      bitwise. Then K2 and K5 (pages 64 and 256) at that decode shape under
      the calibrated spec, held and timed as in the kernel phases.
+  18. train - minicpm-2b trained at full width and depth (40 layers,
+     d_model 2304, 36 heads of 64, d_ff 5760, vocab 122,753; random bf16
+     weights from a seeded torch.Generator): 8 steps of 4 x 1024 tokens
+     from ShardedTokenStream, AdamW under the config's WSD schedule
+     (warmup 1, lr 1e-3), grad_accum 1, a checkpoint a layer. Checks:
+     every loss and grad norm finite, the last loss below the first, each
+     step's lr within an f32 ulp of the plain f32 formula. Reports the
+     losses, grad norms, step ms, tokens a second, 6 N T / step time as a
+     share of the bf16 peak and the peak memory. No kernel of csrc/.
+  19. train_launch - smollm-135m at full width through
+     ``launch.train.main``: 40 steps of 8 x 256 tokens at grad_accum 2
+     under WSD, checkpoints every 20 steps into a temporary directory;
+     the same run preempted after 20 steps and resumed: the two step-40
+     checkpoints bitwise equal leaf for leaf (parameters, moments, step);
+     then one step at grad_accum 1 against one at 2 from the same
+     parameters: the loss within 1e-3, every parameter within 5e-3.
 
 Each phase's seconds follow it on a line of their own ("phase_seconds"),
 and the total before the card's line. Then the kernels line (K2's
@@ -654,6 +671,9 @@ def cache_tensors(x):
             yield from cache_tensors(v)
 
 
+AGREE_NEW = 32  # serve's B=1 generate controls: the first 32 of 160 tokens
+
+
 def phase_serve(engine, cfg, device) -> dict:
     import numpy as np
     import torch
@@ -700,11 +720,12 @@ def phase_serve(engine, cfg, device) -> dict:
     check(sorted(retired) == sorted(want), f"compressed lengths {retired} != {want}")
     logits, _ = engine.prefill({"tokens": prompts[0][None]})
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-    # per-request agreement with the port's own B=1 generate
+    # per-request agreement with the port's own B=1 generate over the first
+    # AGREE_NEW tokens (reported, not a check)
     agree = []
     for rid, r in sorted(done.items()):
-        gen, _ = engine.generate({"tokens": r.tokens[None]}, 160)
-        out = np.asarray(r.output)
+        gen, _ = engine.generate({"tokens": r.tokens[None]}, AGREE_NEW)
+        out = np.asarray(r.output)[:AGREE_NEW]
         same = out == gen[0]
         prefix = int(np.argmin(same)) if not same.all() else len(out)
         agree.append({"rid": rid, "rate": float(same.mean()), "prefix": prefix})
@@ -914,7 +935,7 @@ class ReplayDrafter:
 
 
 SPEC_K = 4  # drafts a verify pass: windows of 5 (EngineConfig's default)
-SPEC_NEW = 64  # new tokens a request: the first 64 of the plain phases' 160
+SPEC_NEW = 32  # new tokens a request: the first 32 of the plain phases' 160
 
 
 def phase_serve_spec(engine, cfg, dense: dict, paged: dict) -> dict:
@@ -925,8 +946,8 @@ def phase_serve_spec(engine, cfg, dense: dict, paged: dict) -> dict:
     K2 (K5) launched n_layers x (plain steps + 5 x verify passes) times
     and the other kernel never, acceptance within the run's range.
 
-    Cut to pay for the recurrent phases: 64 new tokens a request (the
-    plain phases ran 160; the first 64 are compared)."""
+    Cut to pay for later phases: 32 new tokens a request (the plain
+    phases ran 160; the first 32 are compared)."""
     import dataclasses
 
     import numpy as np
@@ -1016,7 +1037,7 @@ def phase_spec_rows(engine, cfg) -> None:
     of llama2-7b's products timed on layer 0's weights, L2 flushed: a
     step reads every weight once, cold), and the steady wall ms per step
     of an engine at spec_k 0 (rows 1) against the serving engine's spec_k
-    4 (rows 5), in turns A B B A twice in this one process."""
+    4 (rows 5), in turns A B B A in this one process."""
     import dataclasses
 
     import torch
@@ -1042,10 +1063,7 @@ def phase_spec_rows(engine, cfg) -> None:
         gemm[f"rows_{rows}"] = total
     rows1 = Engine(cfg, engine.params, engine.pack_cfg,
                    dataclasses.replace(engine.ecfg, calibrate=False, spec_k=0))
-    steady = {"rows_1": [], f"rows_{w}": []}
-    for _ in range(2):
-        for k, v in steady_step_ms({"rows_1": rows1, f"rows_{w}": engine}, cfg).items():
-            steady[k] += v
+    steady = steady_step_ms({"rows_1": rows1, f"rows_{w}": engine}, cfg)
     emit({"phase": "spec_rows", "B": B, "gemm_ms_per_step": gemm,
           "steady_ms_per_step": steady,
           "steady_median_ms": {k: statistics.median(v) for k, v in steady.items()}})
@@ -1591,7 +1609,7 @@ def phase_serve_configs(first: tuple, device) -> dict:
 # serve_prefix: qwen3-32b with a shared system prompt, paged + prefix cache
 PREFIX_SYS = 512
 PREFIX_SUFFIXES = (320, 700, 200, 450, 260, 900)
-PREFIX_NEW = 64
+PREFIX_NEW = 32
 
 
 def phase_serve_prefix(device) -> dict:
@@ -1715,7 +1733,7 @@ def phase_serve_prefix(device) -> dict:
 
 # serve_moe / serve_vlm / encode: the MoE family, the VLM and the encoder
 MOE_PROMPTS = (320, 700, 1000, 450, 260, 900)
-MOE_NEW = 64
+MOE_NEW = 32
 MOONSHOT_PROMPTS = (320, 700, 450, 900)
 MOONSHOT_NEW = 32
 VLM_TOKENS, VLM_NEW = 512, 32
@@ -1850,7 +1868,7 @@ def moe_routing_on_card(engine, cfg, prompt) -> dict:
 
 
 def phase_serve_moe(device) -> dict:
-    """qwen2-moe-a2.7b at full width and depth, 6 requests of 64 new
+    """qwen2-moe-a2.7b at full width and depth, 6 requests of MOE_NEW new
     tokens, in four runs: (a) dense, chunked admission; (b) paged (pages of
     256), bitwise equal to (a); (c) dense, spec_k 4 with the replay drafter,
     bitwise equal to (a) for every request no verify pass dropped a routed
@@ -2056,7 +2074,7 @@ def phase_encode(device) -> None:
 
 # serve_rwkv / serve_rglru: the recurrent families at full width and depth
 RWKV_PROMPTS = (320, 700, 1000, 450, 260, 900)  # 700, 1000, 450, 260: a sequential tail
-RWKV_NEW = 64
+RWKV_NEW = 32
 RGLRU_PROMPTS = (2048, 700, 450, 900, 260)
 RGLRU_NEW = (200, 32, 32, 32, 32)  # the 2048-token row flushes at steps 129 and 193
 
@@ -2161,7 +2179,7 @@ def phase_serve_rwkv(device) -> dict:
     heads of 64, vocab 65,536; random bf16 weights from a seeded
     torch.Generator) through SlotServer, 4 slots, chunked admission of one
     256-token page a step: 6 requests (prompts 320/700/1000/450/260/900,
-    four with a sub-chunk WKV tail, five longer than a chunk), 64 new
+    four with a sub-chunk WKV tail, five longer than a chunk), RWKV_NEW new
     tokens each. Every request bitwise equal to its solo control at the
     server's height; the same requests through monolithic admission
     bitwise equal; one 1000-token admission's logits and state row equal
@@ -2287,6 +2305,217 @@ def phase_serve_rglru(device) -> dict:
     paged = k5_rows(cfg.name, B, cfg.n_kv_heads, G, cfg.hd, ks, vs, (64, 256), gen, flush)
     free_engine(engine)
     return {"launches": k2, "k2": kernel, "k5": paged}
+
+
+# train: minicpm-2b at full width and depth under its own WSD schedule
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA's data sheet), at 700 W
+
+
+def plain_wsd_lr(step: int, lr: float, warmup: int, total: int, decay_frac: float):
+    """The WSD schedule's written formula in numpy f32 (the yardstick of
+    ``training.optimizer.make_schedule`` on the card)."""
+    import numpy as np
+
+    f = np.float32
+    ds = int(total * (1 - decay_frac))
+    if step < warmup:
+        x = f(step) / f(max(warmup, 1))
+    elif step < ds:
+        x = f(1.0)
+    else:
+        x = f(1.0) - min(max(f(step - ds) / f(max(total - ds, 1)), f(0.0)), f(1.0))
+    return f(lr) * x
+
+
+def phase_train(device, card: str) -> None:
+    """minicpm-2b trained at full width and depth (40 layers, d_model 2304,
+    36 heads of 64, d_ff 5760, vocab 122,753; random bf16 weights from a
+    seeded torch.Generator) for TRAIN_STEPS steps of 4 x 1024 tokens from
+    ShardedTokenStream, AdamW under the config's own WSD schedule
+    (warmup 1, total TRAIN_STEPS, lr 1e-3), grad_accum 1: every loss and
+    grad norm finite, the last loss below the first, the lr of every step
+    within an f32 ulp of the plain f32 formula. Reports each step's loss,
+    grad norm and ms (host clock around the step and the loss's host
+    read), the median step, tokens a second, 6 N tokens / step time as a
+    share of the bf16 peak, and the peak memory."""
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch, minicpm_2b
+    from repro_torch.data import ShardedTokenStream
+    from repro_torch.models import get_model
+    from repro_torch.training import OptConfig, init_training, make_schedule, make_train_step
+    from repro_torch.utils import tree_flatten
+
+    cfg = get_arch("minicpm-2b")
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params, opt = init_training(api, cfg, torch.Generator(device=device).manual_seed(40))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_flatten(params)[0])
+    n_matmul = n_params - params["embed"].numel()  # the table is looked up
+    oc = OptConfig(lr=1e-3, schedule=minicpm_2b.TRAIN_SCHEDULE, warmup_steps=1,
+                   total_steps=TRAIN_STEPS)
+    sched = make_schedule(oc)
+    step_fn = make_train_step(api, cfg, oc, grad_accum=1)
+    stream = ShardedTokenStream(vocab=cfg.vocab, batch_per_host=TRAIN_BATCH,
+                                seq=TRAIN_SEQ, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, lrs, ms = [], [], [], []
+    lr_err = 0.0
+    for _ in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in stream.next_batch().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        step = int(m["step"])
+        lr = float(sched(m["step"]))
+        want = plain_wsd_lr(step, oc.lr, oc.warmup_steps, oc.total_steps, oc.decay_frac)
+        lr_err = max(lr_err, abs(lr - float(want)))
+        lrs.append(lr)
+        print(f"train step {step}: loss {losses[-1]:.4f} grad_norm {gnorms[-1]:.4f} "
+              f"lr {lr:.6g} {ms[-1]:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"minicpm-2b training: a loss or grad norm is not finite: {losses} {gnorms}")
+    check(losses[-1] < losses[0], f"minicpm-2b training: loss did not fall: {losses}")
+    ulp = float(np.spacing(np.float32(oc.lr)))
+    check(lr_err <= ulp, f"WSD lr off the plain f32 formula by {lr_err} (> {ulp})")
+    step_ms = statistics.median(ms[1:])  # the first step allocates
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads, "head_dim": cfg.hd,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
+          "matmul_params": n_matmul, "schedule": oc.schedule, "lr": oc.lr,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "grad_accum": 1, "init_s": init_s, "losses": losses, "grad_norms": gnorms,
+          "lrs": lrs, "lr_max_abs_err_vs_plain_f32": lr_err, "step_ms": ms,
+          "median_step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+          "six_n_tokens_share_of_bf16_peak": 6 * n_matmul * tokens / (step_ms / 1e3)
+          / BF16_FLOPS, "bf16_peak_flops": BF16_FLOPS,
+          "peak_memory_bytes": peak, "nvidia_smi": card})
+    del params, opt, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+LAUNCH_ARGS = ["--arch", "smollm-135m", "--steps", "40", "--batch", "8", "--seq", "256",
+               "--grad-accum", "2", "--schedule", "wsd", "--ckpt-every", "20",
+               "--seed", "0"]
+
+
+def npz_diff(a: str, b: str) -> dict:
+    """Leaves of two arrays.npz files that differ: {key: max abs diff}
+    (bf16 leaves read through their bits); empty when every leaf is
+    bitwise equal."""
+    import numpy as np
+    import torch
+
+    out = {}
+    with np.load(a) as fa, np.load(b) as fb:
+        check(sorted(fa.files) == sorted(fb.files), f"{a} and {b} hold other leaves")
+        for k in fa.files:
+            x, y = fa[k], fb[k]
+            if x.tobytes() == y.tobytes():
+                continue
+            if x.dtype == np.uint16:  # bf16 bits
+                x, y = (torch.from_numpy(z.view(np.int16).copy()).view(torch.bfloat16)
+                        .float().numpy() for z in (x, y))
+            out[k] = float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max())
+    return out
+
+
+def phase_train_launch(device, card: str) -> None:
+    """smollm-135m at full width (30 layers, d_model 576, 163 M parameters:
+    a 1.6 GB checkpoint with the moments) through ``launch.train.main``:
+    batch 8 x 256 tokens, grad_accum 2, WSD, lr 3e-4. Run A: 40 steps,
+    a checkpoint every 20; run B: A's step-20 checkpoint alone in a fresh
+    directory (what a run preempted after step 20 leaves), then --resume
+    to 40. A's and B's step-40 checkpoints must be bitwise equal leaf for
+    leaf (parameters, moments, step). Then one step at grad_accum 1 against
+    one at 2 from the same parameters (lr 1e-3, warmup 1): the loss within
+    1e-3 and every parameter within 5e-3, the reference's own bounds; and,
+    since Adam's first step moves a parameter by ~lr whatever its gradient,
+    the gradients: the grad norm within 1e-2 relative and each first
+    moment within 0.1 of its leaf's max abs (the bars of
+    tests/test_torch_training.py::test_grad_accum_holds_gradients)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ShardedTokenStream
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_model
+    from repro_torch.training import OptConfig, init_training, make_train_step
+    from repro_torch.utils import tree_flatten, tree_map
+
+    def run(argv: list) -> tuple[str, float]:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            check(launch_train.main(argv) == 0, f"train launcher failed: {argv}")
+        return buf.getvalue(), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        out_a, s_a = run(LAUNCH_ARGS + ["--ckpt-dir", a])
+        shutil.copytree(os.path.join(a, "step_00000020"), os.path.join(b, "step_00000020"))
+        out_b2, s_b2 = run(LAUNCH_ARGS + ["--ckpt-dir", b, "--resume"])
+        for line in (out_a + out_b2).splitlines():
+            print(f"launcher: {line}", flush=True)
+        check("resumed from step 20" in out_b2, "run B did not resume from step 20")
+        ckpt = lambda d: os.path.join(d, "step_00000040", "arrays.npz")
+        ckpt_bytes = os.path.getsize(ckpt(a))
+        diff = npz_diff(ckpt(a), ckpt(b))
+    if diff:
+        emit({"phase": "train_launch", "resumed_vs_uninterrupted_max_abs_diff": diff})
+    check(not diff, f"resumed run differs from the uninterrupted one: {diff}")
+    # grad_accum 1 against 2, one step from the same parameters
+    cfg = get_arch("smollm-135m")
+    api = get_model(cfg)
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             ShardedTokenStream(vocab=cfg.vocab, batch_per_host=8, seq=256,
+                                seed=1).next_batch().items()}
+    p1, o1 = init_training(api, cfg, torch.Generator(device=device).manual_seed(41))
+    p2, o2 = tree_map(torch.clone, p1), tree_map(torch.clone, o1)
+    p1, o1, m1 = make_train_step(api, cfg, oc, grad_accum=1)(p1, o1, batch)
+    p2, o2, m2 = make_train_step(api, cfg, oc, grad_accum=2)(p2, o2, batch)
+    loss_diff = abs(float(m1["loss"]) - float(m2["loss"]))
+    param_diff = max(float((x.float() - y.float()).abs().max())
+                     for x, y in zip(tree_flatten(p1)[0], tree_flatten(p2)[0]))
+    g1, g2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+    norm_gap = abs(g1 - g2) / g1
+    mu_gap = max(float((x - y).abs().max() / x.abs().max())
+                 for x, y in zip(tree_flatten(o1.mu)[0], tree_flatten(o2.mu)[0]))
+    check(loss_diff < 1e-3 and param_diff < 5e-3 and norm_gap <= 1e-2 and mu_gap <= 0.1,
+          f"grad_accum 1 vs 2: loss {loss_diff}, params {param_diff}, "
+          f"grad norm {norm_gap} relative, first moments {mu_gap} of a leaf's max")
+    emit({"phase": "train_launch", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(), "argv": LAUNCH_ARGS,
+          "checkpoint_bytes": ckpt_bytes, "run_a_s": s_a,
+          "run_b_resumed_s": s_b2, "resumed_bitwise_equal_uninterrupted": True,
+          "grad_accum_1_vs_2": {"loss_abs_diff": loss_diff,
+                                "param_max_abs_diff": param_diff,
+                                "grad_norms": [g1, g2], "grad_norm_rel_gap": norm_gap,
+                                "first_moment_max_rel_gap": mu_gap,
+                                "losses": [float(m1["loss"]), float(m2["loss"])]},
+          "nvidia_smi": card})
+    del p1, p2, o1, o2, batch
+    torch.cuda.empty_cache()
 
 
 def tier_runs(tc_, flat, sliced: bool):
@@ -2607,9 +2836,9 @@ def phase_matvec(engine, device) -> dict:
 # storage: the paper's storage tier (quantize -> repack -> bit-pack, the
 # block stream) over llama2-7b's full-width K/V and synthetic K/V of the
 # same shape
-STORAGE_TOKENS = 2048  # one prompt: 32 blocks of 64 a (layer, kv head)
+STORAGE_TOKENS = 1024  # one prompt: 16 blocks of 64 a (layer, kv head)
 STORAGE_MODES = ("none", "median_v", "greedy_joint")
-STORAGE_SAMPLE_BLOCKS = 4  # blocks 0-3 of every head of the first and last layer
+STORAGE_SAMPLE_BLOCKS = 2  # blocks 0-1 of every head of the first and last layer
 STORAGE_SEED = 21  # input A's prompt; input B's K and V streams
 STORAGE_GROUP = 8  # input B's layers a worker task
 STORAGE_WORKERS = 2  # worker processes making input B (more slow input A's launches)
@@ -2727,7 +2956,7 @@ def storage_checks(k, v, stream) -> float:
 
 
 def storage_sample(k, v, stream, n_heads: int, n_kv: int) -> dict:
-    """The device stream's entries of blocks 0-3 of every head of the first
+    """The device stream's entries of blocks 0-1 of every head of the first
     and last layer against the plain CPU path (``append``, one block at a
     time) on the same values: perm, scale / zero, widths, minima, payload
     words and the serialized stream with its directory, bitwise."""
@@ -2930,6 +3159,8 @@ def main() -> int:
     timed(phase_encode, device)
     timed(phase_serve_rwkv, device)
     rglru = timed(phase_serve_rglru, device)
+    timed(phase_train, device, card)
+    timed(phase_train_launch, device, card)
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     row = lambda name, source, replaces, k, launches: {

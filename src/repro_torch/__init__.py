@@ -1,4 +1,5 @@
-"""PackKV in PyTorch: the serving path of ``repro`` ported to CUDA GPUs.
+"""PackKV in PyTorch: the serving and training paths of ``repro`` ported to
+CUDA GPUs.
 
 Module names mirror the JAX package (``repro``) one for one, so each
 module's counterpart is found by name. This package imports ``torch``

@@ -1,3 +1,11 @@
-"""Disk serializers (the torch port of ``repro/checkpoint``'s mini-cache
-half; the step checkpoints arrive with the training port)."""
-from .sharded import load_mini, save_mini  # noqa: F401
+"""Disk checkpoints: step checkpoints of the training loop and the
+mini-cache serializers of the session cache."""
+from .sharded import (  # noqa: F401
+    AsyncCheckpointer,
+    gc_old,
+    latest_step,
+    load_mini,
+    restore,
+    save,
+    save_mini,
+)

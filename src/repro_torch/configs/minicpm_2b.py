@@ -1,5 +1,6 @@
 """MiniCPM-2B: a llama-like architecture with head dim 64 [arXiv:2404.06395;
-hf]. Its WSD training schedule arrives with the training port."""
+hf], trained under the WSD (warmup-stable-decay) schedule of
+``repro_torch.training.optimizer``, which ``TRAIN_SCHEDULE`` selects."""
 from .base import ArchConfig
 
 CONFIG = ArchConfig(
@@ -11,3 +12,5 @@ SMOKE = ArchConfig(
     name="minicpm-2b-smoke", family="dense", n_layers=2, d_model=128, n_heads=4,
     n_kv_heads=4, d_ff=256, vocab=511,  # odd vocab keeps the padding path hot
 )
+
+TRAIN_SCHEDULE = "wsd"

@@ -39,6 +39,7 @@ from .core.cache import LayerKVCache, PackKVConfig, PagePool
 from .core.quantization import QuantConfig
 from .core.tiered import TierBuffer, TierSpec, TieredCache
 from .models.transformer import FAMILIES
+from .training.optimizer import OptState
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -100,6 +101,23 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
         raise ValueError(f"config {cfg.name} takes input_mode "
                          f"{cfg.input_mode!r}, the params' embedding disagrees")
     return out
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of ``params_from_numpy``: this package's params (or any
+    nested dict of tensors, None kept) as numpy, bf16 as
+    ``tensor_to_numpy`` gives it."""
+    return {k: params_to_numpy(v) if isinstance(v, dict) else
+            None if v is None else tensor_to_numpy(v) for k, v in params.items()}
+
+
+def opt_state_from_numpy(mu: dict, nu: dict, step, cfg: ArchConfig,
+                         device="cuda") -> OptState:
+    """The reference's ``OptState`` (its ``mu`` and ``nu`` trees and its
+    ``step`` as numpy) -> this package's, through ``params_from_numpy``."""
+    return OptState(mu=params_from_numpy(mu, cfg, device),
+                    nu=params_from_numpy(nu, cfg, device),
+                    step=tensor_from_numpy(np.asarray(step, np.int32), device))
 
 
 def _tiered_from_numpy(d: dict, spec: TierSpec, device) -> TieredCache:

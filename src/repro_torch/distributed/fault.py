@@ -1,16 +1,19 @@
-"""Fault handling of the serving loop (the torch port of
-``repro/distributed/fault.py``; its elastic plan, ``ElasticPlan`` /
-``downscale_plan``, waits for the multi-device port).
+"""Fault handling of the serving and training loops (the torch port of
+``repro/distributed/fault.py``).
 
 ``StragglerMonitor`` watches each decode launch's wall time; a sustained
 straggler verdict turns speculative decode off for the rest of the run
 (``serving.engine.SlotServer._observe_launch``). ``FaultPlan`` schedules
 faults at exact scheduler steps (``SlotServer._apply_faults``), so a
 hostile run is reproducible launch by launch. ``CheckpointPolicy`` is the
-training loop's save cadence."""
+training loop's save cadence; ``downscale_plan`` is the elastic plan the
+train launcher prints when the monitor asks to exclude a straggler (the
+surrounding fleet controller would enact it and relaunch with
+``--resume``)."""
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 
 
@@ -26,7 +29,8 @@ class CheckpointPolicy:
 class StragglerMonitor:
     """Flags steps slower than ``threshold`` times the rolling median of
     the last ``window`` steps; ``patience`` consecutive flags give
-    'exclude'. Pure host state: tests inject timings."""
+    'exclude'. Pure host state: ``start`` / ``stop`` time a step, tests
+    inject timings through ``observe``."""
 
     def __init__(self, window: int = 32, threshold: float = 3.0, patience: int = 3):
         self.times: deque[float] = deque(maxlen=window)
@@ -35,6 +39,19 @@ class StragglerMonitor:
         self.consecutive = 0
         self.flagged_steps: list[int] = []
         self._step = 0
+        self._t0: float | None = None
+
+    def start(self) -> None:
+        """Open a step's wall-clock window (``stop`` closes it)."""
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> str:
+        """Observe the wall time since ``start``. A CUDA step returns
+        before the device is done: call this after a read that waits for
+        it."""
+        if self._t0 is None:
+            raise RuntimeError("stop() without start()")
+        return self.observe(time.perf_counter() - self._t0)
 
     def observe(self, dt: float) -> str:
         """Record one step of ``dt`` seconds; returns 'ok' | 'straggler' |
@@ -115,3 +132,31 @@ class FaultPlan:
 
     def __add__(self, other: "FaultPlan") -> "FaultPlan":
         return FaultPlan([*self.events, *other.events])
+
+
+@dataclasses.dataclass
+class ElasticPlan:
+    """Mesh transition for an elastic rescale event. The checkpoint format
+    is mesh-agnostic (whole arrays), so a rescale is a restore onto the
+    new mesh; this records the decision."""
+
+    old_shape: tuple[int, ...]
+    new_shape: tuple[int, ...]
+    reason: str  # 'exclude-straggler' | 'node-failure' | 'scale-up'
+
+    @property
+    def new_device_count(self) -> int:
+        n = 1
+        for d in self.new_shape:
+            n *= d
+        return n
+
+
+def downscale_plan(shape: tuple[int, ...], reason: str) -> ElasticPlan:
+    """Halve the data axis (the standard failure-domain response); the data
+    axis is the last but one by convention ((pod,) data, model)."""
+    axes = list(shape)
+    i = len(axes) - 2
+    if axes[i] % 2 == 0 and axes[i] > 1:
+        axes[i] //= 2
+    return ElasticPlan(old_shape=shape, new_shape=tuple(axes), reason=reason)

@@ -240,3 +240,16 @@ def qkv_proj(p: dict, x, n_heads: int, n_kv: int, head_dim: int, positions,
 
 def mlp_apply(p: dict, x) -> torch.Tensor:
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy. logits [..., V] (upcast to f32), labels [...] int."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(lse - gold)

@@ -1,8 +1,9 @@
 """Model registry: one functional interface over every family.
 
 The torch port of ``repro/models/registry.py``: the transformer API
-serves the dense, moe, vlm and encoder families (an encoder is run by
-``transformer.encode``), ``rwkv6`` and ``rglru`` the two recurrent ones.
+trains and serves the dense, moe, vlm and encoder families (an encoder
+is run by ``transformer.encode``), ``rwkv6`` and ``rglru`` the two
+recurrent ones.
 The recurrent families' O(1) state has no pages, no verify pass and no
 evacuate / restore ops: their ``decode_multi``, ``decode_verify``, prefix
 ops, ``evacuate_slot`` and ``restore_slot`` are None and
@@ -11,6 +12,9 @@ them.
 
 ModelApi:
   init(gen, cfg) -> params
+  forward_train(params, cfg, batch) -> (logits f32 [B, S, V], aux loss)
+  loss_fn(params, cfg, batch) -> scalar loss (mean cross-entropy on the
+      labels, over a VLM's text positions only, + AUX_WEIGHT * aux)
   prefill(params, cfg, pack_cfg, capacity, batch) -> (last_logits, cache)
   decode_step(params, cfg, cache, token, backend=..., n_bucket=..., rows=...)
       -> (logits, cache)
@@ -56,11 +60,16 @@ from typing import Callable
 
 from ..configs.base import ArchConfig
 from . import rglru, rwkv6, transformer
+from .layers import softmax_xent
+
+AUX_WEIGHT = 0.01  # MoE load-balance loss weight
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init: Callable
+    forward_train: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     alloc_cache: Callable
@@ -82,9 +91,21 @@ class ModelApi:
     supports_paged: bool = False
 
 
+def _make_loss(forward_train):
+    def loss_fn(params, cfg: ArchConfig, batch):
+        logits, aux = forward_train(params, cfg, batch)
+        if cfg.input_mode == "tokens_patches":
+            logits = logits[:, cfg.n_patches:]  # loss on the text positions
+        return softmax_xent(logits, batch["labels"]) + AUX_WEIGHT * aux
+
+    return loss_fn
+
+
 def _transformer_api() -> ModelApi:
     return ModelApi(
         init=transformer.init_params,
+        forward_train=transformer.forward_train,
+        loss_fn=_make_loss(transformer.forward_train),
         prefill=transformer.prefill,
         decode_step=transformer.decode_step,
         alloc_cache=transformer.alloc_cache,
@@ -110,6 +131,8 @@ def _transformer_api() -> ModelApi:
 def _rwkv_api() -> ModelApi:
     return ModelApi(
         init=rwkv6.init_params,
+        forward_train=rwkv6.forward_train,
+        loss_fn=_make_loss(rwkv6.forward_train),
         prefill=rwkv6.prefill,
         decode_step=rwkv6.decode_step,
         alloc_cache=lambda cfg, pack_cfg, batch, capacity, device="cuda":
@@ -126,6 +149,8 @@ def _rwkv_api() -> ModelApi:
 def _rglru_api() -> ModelApi:
     return ModelApi(
         init=rglru.init_params,
+        forward_train=rglru.forward_train,
+        loss_fn=_make_loss(rglru.forward_train),
         prefill=rglru.prefill,
         decode_step=rglru.decode_step,
         alloc_cache=lambda cfg, pack_cfg, batch, capacity, device="cuda":

@@ -1,10 +1,10 @@
 """RecurrentGemma / Griffin (arXiv:2402.19427): RG-LRU blocks and local
 attention, 2:1.
 
-The torch port of the serving path of ``repro/models/rglru.py``. Layers
-come in groups of (recurrent, recurrent, attention), each sub-layer
-followed by an MLP; 38 layers are 12 groups and 2 trailing recurrent
-blocks. The local-attention layers keep a PackKV-compressed sliding-window
+The torch port of ``repro/models/rglru.py``: the training forward
+(``forward_train``) and the serving path. Layers come in groups of
+(recurrent, recurrent, attention), each sub-layer followed by an MLP; 38
+layers are 12 groups and 2 trailing recurrent blocks. The local-attention layers keep a PackKV-compressed sliding-window
 cache of ``window`` tokens (``core.cache.append_token(ring=True)``: valid
 because decode attention does not depend on the order of its tokens) and
 decode through K2 (``kernels.ops.packed_decode_attention``); the RG-LRU
@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.cache import (
@@ -45,11 +46,12 @@ from ..core.cache import (
     reset_slot,
 )
 from ..kernels import dense_decode_attention, packed_decode_attention
-from ..utils import round_up
+from ..utils import round_up, tree_unbind
 from .layers import (
     PREFILL_ROWS,
     apply_rope,
     dense_init,
+    flash_attention,
     mlp_apply,
     qkv_proj,
     resume_attention,
@@ -182,12 +184,13 @@ def _rg_lru_seq(p: dict, x, h0, rows):
     i = torch.sigmoid(_mm(xf, p["lru_wx"], rows))
     a = torch.exp(-LRU_C * torch.nn.functional.softplus(p["lru_lambda"]) * r)
     gx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
-    ys = torch.empty_like(gx)
-    h = h0
+    ys, h = [], h0
     for t in range(x.shape[1]):
         h = a[:, t] * h + gx[:, t]
-        ys[:, t] = h
-    return ys, h
+        ys.append(h)
+    # stacked, not written into a buffer a token at a time: under autograd
+    # each such write's backward copies the whole buffer's gradient
+    return torch.stack(ys, dim=1), h
 
 
 def _rec_block_seq(p: dict, h, conv_hist, h0, rows):
@@ -258,8 +261,37 @@ def _head(params: dict, h):
 
 
 # ---------------------------------------------------------------------------
-# prefill / decode
+# train / prefill / decode
 # ---------------------------------------------------------------------------
+
+
+def forward_train(params: dict, cfg: ArchConfig, batch: dict):
+    """Full-sequence forward from zero state -> (logits f32 [B, T, V], a
+    zero aux loss): each group (two recurrent blocks, then the local
+    attention block through ``flash_attention``) under
+    ``torch.utils.checkpoint``, then the tail blocks, as the reference.
+    The stacked leaves are unbound once (``utils.tree_unbind``)."""
+    tokens = batch["tokens"].to(torch.int64)
+    B, T = tokens.shape
+    h = params["embed"][tokens]
+    positions = torch.arange(T, device=h.device)
+    conv0, h0 = _zeros_states(cfg, B, h.device)
+
+    def group(hh, gp):
+        for rp in tree_unbind(gp["rec"]):
+            hh = _rec_block_seq(rp, hh, conv0, h0, None)[0]
+        p = gp["attn"]
+        q, k, v = _qkv_seq(p["attn"], rmsnorm(hh, p["ln"]), cfg, positions, None)
+        attn = flash_attention(q, k, v, causal=True, window=cfg.window)
+        return _attn_out(p, hh, attn, None)
+
+    for gp in tree_unbind(params["groups"]):
+        h = checkpoint(group, h, gp, use_reentrant=False)
+    if params["tail"] is not None:
+        for tp in tree_unbind(params["tail"]):
+            h = _rec_block_seq(tp, h, conv0, h0, None)[0]
+    logits = (rmsnorm(h, params["final_ln"]) @ params["head"]).to(torch.float32)
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _window_cache(cfg: ArchConfig, pack_cfg: PackKVConfig, B: int, device):

@@ -1,7 +1,7 @@
 """RWKV-6 "Finch" (arXiv:2404.05892): a linear RNN with data-dependent decay.
 
-The torch port of the serving path of ``repro/models/rwkv6.py``. PackKV
-does not apply here: the decode state is O(1) in the context (a per-head
+The torch port of ``repro/models/rwkv6.py``: the training forward
+(``forward_train``) and the serving path. PackKV does not apply here: the decode state is O(1) in the context (a per-head
 [N, N] matrix), so there is no growing KV cache to compress, and the
 family reaches no kernel of ``kernels/``. As in the reference, the r/k/v/g
 token-shift coefficients are static and the decay is the Finch LoRA
@@ -28,8 +28,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..utils import tree_unbind
 from .layers import PREFILL_ROWS, dense_init, rmsnorm
 from .layers import mm_slabs as _mm
 
@@ -205,6 +207,30 @@ def _channel_mix_seq(p: dict, x, x_prev, rows):
     kk = torch.square(torch.relu(_mm(xk, p["cm_wk"], rows).to(f32))).to(x.dtype)
     gate = torch.sigmoid(_mm(xr, p["cm_wr"], rows).to(f32)).to(x.dtype)
     return gate * _mm(kk, p["cm_wv"], rows), x[:, -1]
+
+
+def forward_train(params: dict, cfg: ArchConfig, batch: dict):
+    """Full-sequence forward from zero state -> (logits f32 [B, T, V], a
+    zero aux loss): the mixed chunked + sequential WKV of ``_time_mix_seq``
+    with one product over all positions (``rows=None``), each layer under
+    ``torch.utils.checkpoint``, as the reference. The stacked leaves are
+    unbound once (``utils.tree_unbind``)."""
+    tokens = batch["tokens"].to(torch.int64)
+    B = tokens.shape[0]
+    H, N = _heads(cfg)
+    h = params["embed"][tokens]
+
+    def block(hh, p):
+        z = torch.zeros((B, cfg.d_model), dtype=hh.dtype, device=hh.device)
+        S0 = torch.zeros((B, H, N, N), dtype=torch.float32, device=hh.device)
+        y = _time_mix_seq(p, cfg, rmsnorm(hh, p["ln1"]), z, S0, None)[0]
+        hh = hh + y
+        return hh + _channel_mix_seq(p, rmsnorm(hh, p["ln2"]), z, None)[0]
+
+    for p in tree_unbind(params["layers"]):
+        h = checkpoint(block, h, p, use_reentrant=False)
+    logits = (rmsnorm(h, params["final_ln"]) @ params["head"]).to(torch.float32)
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def alloc_state(cfg: ArchConfig, batch: int, device="cuda") -> RwkvState:

@@ -1,13 +1,13 @@
-"""Transformer family (llama-style), serving half: the dense configs,
-MoE (qwen2-moe, moonshot: ``models/moe.py`` in place of the SwiGLU), the
-VLM (internvl2: a patch-embedding prefix) and the encoder (hubert: frame
-inputs, ``encode``).
+"""Transformer family (llama-style): the dense configs, MoE (qwen2-moe,
+moonshot: ``models/moe.py`` in place of the SwiGLU), the VLM (internvl2: a
+patch-embedding prefix) and the encoder (hubert: frame inputs,
+``encode``).
 
-The torch port of the serving path of ``repro/models/transformer.py``:
-prefill with the reference's tiled flash attention, compress-as-you-prefill
-into the PackKV cache (dense or paged storage), chunked admission
-(``prefill_chunk*``), and per-token decode over the compressed cache
-through ``kernels.ops``. Parameters are a dict whose per-layer tensors are
+The torch port of ``repro/models/transformer.py``: the training forward
+(``forward_train``, a checkpoint per layer), prefill with the reference's
+tiled flash attention, compress-as-you-prefill into the PackKV cache
+(dense or paged storage), chunked admission (``prefill_chunk*``), and
+per-token decode over the compressed cache through ``kernels.ops``. Parameters are a dict whose per-layer tensors are
 stacked on a leading ``n_layers`` axis, as the reference's are; the cache
 is a list of ``LayerKVCache``, one per layer, updated IN PLACE (the
 reference donated it).
@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.cache import (
@@ -50,7 +51,7 @@ from ..kernels import (
     packed_decode_attention,
     paged_decode_attention,
 )
-from ..utils import round_up
+from ..utils import div, round_up, tree_unbind
 from .layers import (
     attention_norm_init,
     ctx_attention,
@@ -134,14 +135,16 @@ def _layer(params: dict, i: int) -> dict:
 
 
 def _apply_mlp(cfg: ArchConfig, p: dict, h: torch.Tensor, site: str,
-               n_real: int | None = None) -> torch.Tensor:
-    """The MLP block's output for hidden states ``h`` (normalized by
-    ``ln2`` first): SwiGLU, or the MoE routing only each batch row's first
-    ``n_real`` positions (the rest are padding)."""
+               n_real: int | None = None):
+    """The MLP block's (output, aux loss) for hidden states ``h``
+    (normalized by ``ln2`` first): SwiGLU and an aux of 0.0 (a Python
+    number, so serving launches nothing for it), or the MoE routing only
+    each batch row's first ``n_real`` positions (the rest are padding) and
+    its load-balancing loss."""
     x = rmsnorm(h, p["ln2"])
     if cfg.family == "moe":
-        return moe_apply(p["mlp"], x, cfg, n_real=n_real, site=site)[0]
-    return mlp_apply(p["mlp"], x)
+        return moe_apply(p["mlp"], x, cfg, n_real=n_real, site=site)
+    return mlp_apply(p["mlp"], x), 0.0
 
 
 def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
@@ -176,6 +179,35 @@ def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
     return _logits(params, h[:, -1:])[:, 0]
 
 
+def _block_train(cfg: ArchConfig, p: dict, h: torch.Tensor, positions):
+    """One layer of the training forward: (h, the MLP's aux loss)."""
+    B, S, _ = h.shape
+    q, k, v = _qkv(p, h, cfg, positions)
+    attn = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+    attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+    h = h + attn.to(h.dtype) @ p["attn"]["wo"]
+    m, aux = _apply_mlp(cfg, p, h, "train")
+    return h + m, aux
+
+
+def forward_train(params: dict, cfg: ArchConfig, batch: dict):
+    """Full-sequence forward -> (logits f32 [B, S, V], aux loss f32 []),
+    the MoE aux summed over the layers and divided by ``n_layers``.
+
+    Each layer runs under ``torch.utils.checkpoint`` (the reference's
+    per-layer remat): the backward recomputes one layer's activations at a
+    time. The stacked leaves are unbound once (``tree_unbind``), so their
+    backward is one ``stack`` a leaf; a per-layer ``select`` would zero a
+    whole stack's gradient once a layer."""
+    h = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p in tree_unbind(params["layers"]):
+        h, a = checkpoint(_block_train, cfg, p, h, positions, use_reentrant=False)
+        aux = aux + a
+    return _logits(params, h), div(aux, cfg.n_layers)
+
+
 def encode(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     """Encoder-only forward to the final hidden states [B, S, D] (hubert's
     'prefill': attention as ``cfg.causal`` says, non-causal for an
@@ -189,7 +221,7 @@ def encode(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
         attn = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + _apply_mlp(cfg, p, h, "encode")
+        h = h + _apply_mlp(cfg, p, h, "encode")[0]
     return rmsnorm(h, params["final_ln"])
 
 
@@ -224,7 +256,7 @@ def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
         attn = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + _apply_mlp(cfg, p, h, "prefill")
+        h = h + _apply_mlp(cfg, p, h, "prefill")[0]
         layer = alloc_layer_cache(pack_cfg, B, cfg.n_kv_heads, cfg.hd,
                                   capacity, device=h.device)
         cache.append(prefill_cache(layer, k, v))
@@ -316,7 +348,7 @@ def prefill_chunk(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
                                 causal=cfg.causal, window=cfg.window)
         attn = attn.transpose(1, 2).reshape(B, h.shape[1], cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + _apply_mlp(cfg, p, h, "chunk", n_real=Sc)
+        h = h + _apply_mlp(cfg, p, h, "chunk", n_real=Sc)[0]
     return _head(params, h[:, :Sc]), scratch
 
 
@@ -377,7 +409,7 @@ def _prefill_segment(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
         attn = ctx_attention(q, k_all, v_all, n_ctx, sm_scale)
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + _apply_mlp(cfg, p, h, "segment")
+        h = h + _apply_mlp(cfg, p, h, "segment")[0]
         prefill_append(layer, k, v, calibrate=n_ctx == 0)
     return _head(params, h), mini
 
@@ -570,7 +602,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
         attn = _attend(layer, q[:, :, 0], sm_scale, backend, n_bucket)
         attn = _pad_rows(attn.reshape(B, 1, cfg.n_heads * cfg.hd), rows)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + _apply_mlp(cfg, p, h, "decode", n_real=1)
+        h = h + _apply_mlp(cfg, p, h, "decode", n_real=1)[0]
     return _logits(params, h)[:, 0], cache
 
 
@@ -616,7 +648,7 @@ def verify_steps(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
                                     n_bucket, ahead=j) for j in range(w)], dim=2)
         attn = attn.transpose(1, 2).reshape(B, w, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-        h = h + _apply_mlp(cfg, p, h, "verify")
+        h = h + _apply_mlp(cfg, p, h, "verify")[0]
     hat = torch.argmax(_logits(params, h), -1).to(torch.int32)
     # the leading run of drafts the window's argmaxes confirm, within each
     # row's valid drafts (free rows have lens 1: their junk never commits)

@@ -146,6 +146,16 @@ def tree_flatten(tree) -> tuple[list, TreeDef]:
     return leaves, TreeDef(walk(tree))
 
 
+def tree_unbind(tree) -> list:
+    """A tree of tensors stacked on a leading axis -> one tree a slice
+    (``torch.unbind`` of every leaf: views, whose backward is one
+    ``stack`` a leaf)."""
+    leaves, treedef = tree_flatten(tree)
+    slices = [torch.unbind(x) for x in leaves]
+    return [treedef.unflatten([s[i] for s in slices])
+            for i in range(len(slices[0]))]
+
+
 def tree_map(fn, tree):
     """``tree`` with every leaf replaced by ``fn(leaf)``."""
     leaves, treedef = tree_flatten(tree)
