@@ -48,7 +48,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      its plain version (same tolerances), bitwise against K2 on the
      gathered dense view, and bitwise against itself; timed at pages 256
      (and 512) as K2 is, with the byte bound counting the page-table reads
-     too.
+     too. Both kernel phases also run the serving mesh's lane shapes under
+     llama2-7b's calibrated spec: H_kv = 16 and 8 (llama2-7b over 2 and 4
+     kv lanes) and H_kv = 2, G = 3 (minitron-4b over 4).
   4. serve - llama2-7b at full width (32 layers, random bf16 weights from a
      seeded torch.Generator) through Engine + SlotServer: policy packkv,
      capacity 2048, 4 slots, decode_chunk 8, backend "fused", dense
@@ -160,6 +162,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      run drains, references conserved after every admit and retire, no
      page leaked, every request no fault touched bitwise equal to a
      fault-free control.
+  12b. serve_mesh - the (dp, kv) serving mesh on this one card, every
+     lane on cuda:0: (a) llama2-7b dense, monolithic, mesh (1, 2): K2 at
+     H_kv = 16; (b) llama2-7b paged (the 14-page pool), chunked, mesh
+     (2, 2): K5 at H_kv = 16 with the dp row masks; (c) minitron-4b
+     (32 layers, 24 heads over 8 kv heads, hd 128) dense, monolithic,
+     mesh (1, 4): K2 at H_kv = 2, G = 3, freed before serve_prefix. The 6
+     prompts of serve, 32 new tokens, 4 slots: every request bitwise equal
+     to its (1, 1) control (a, b: the serve / serve_paged phases' first 32
+     tokens; c: a (1, 1) run here), K2 / K5 launched once a lane, layer
+     and decode step and the other kernel never, every lane's page ledger
+     and counters equal to lane (0, 0)'s. Reports decode tok/s, the wall
+     ms a step of steady launches beside the control's (in turns), the
+     device bytes a token a lane and summed, and the peak memory.
 
   13. serve_moe (after serve_prefix, qwen3-32b freed) - qwen2-moe-a2.7b at
      full width and depth (24 layers, d_model 2048, 16 heads over 16 kv
@@ -228,10 +243,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 Each phase's seconds follow it on a line of their own ("phase_seconds"),
 and the total before the card's line. Then the kernels line (K2's
 launches summed over the dense serve phases, serve_spec's,
-serve_preempt's, serve_session's, serve_moe's, serve_vlm's and
-serve_rglru's dense runs included, K5's over the paged, paged
-speculative, prefix, paged preempt, session, fault and serve_moe paged
-ones) and, last, {"ok": true, "device": {...}}.
+serve_preempt's, serve_session's, serve_mesh's, serve_moe's,
+serve_vlm's and serve_rglru's dense runs included, K5's over the paged,
+paged speculative, prefix, paged preempt, session, fault, serve_mesh and
+serve_moe paged ones) and, last, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -356,7 +371,10 @@ def kernel_flops(cache, n_rows, G: int) -> int:
 # a GQA one, and those of the other dense configs' serving (qwen3-32b's
 # G = 8; smollm-135m's G = 3 at head dim 64)
 SHAPES = [("llama2-7b", 4, 32, 1, 128), ("gqa", 4, 8, 4, 128),
-          ("qwen3-32b", 4, 8, 8, 128), ("smollm-135m", 4, 3, 3, 64)]
+          ("qwen3-32b", 4, 8, 8, 128), ("smollm-135m", 4, 3, 3, 64),
+          # serve_mesh's lanes: llama2-7b over 2 and 4 kv lanes, minitron-4b over 4
+          ("llama2-7b-lane16", 4, 16, 1, 128), ("llama2-7b-lane8", 4, 8, 1, 128),
+          ("minitron-4b-lane2", 4, 2, 3, 128)]
 MATVEC_SHAPES = SHAPES[:2]  # the tier matvecs' shapes (K3/K4 at D=64: GPU tests)
 LENGTHS = (0, 64, 1344, 2048)
 
@@ -787,11 +805,11 @@ def chunk_vs_mono(engine, tokens) -> dict:
             "cache_bytes_equal": same}
 
 
-def steady_step_ms(engines: dict, cfg, launches: int = 4) -> dict:
+def steady_step_ms(engines: dict, cfg, launches: int = 2) -> dict:
     """Wall milliseconds per decode step of steady launches (4 rows of 700
-    tokens, 8 steps a launch, no flush in the window), the engines taken
-    in turns A, B, B, A in this one process (host time varies between
-    processes and machines)."""
+    tokens, 8 steps a launch, ``launches`` launches a turn after a warm-up
+    one, no flush in the window), the engines taken in turns A, B, B, A in
+    this one process (host time varies between processes and machines)."""
     import numpy as np
     import torch
 
@@ -1495,6 +1513,136 @@ def phase_serve_faults(engine, cfg) -> dict:
           "prefix_hits": s.prefix_hits, "prefix_evictions": s.prefix_evictions,
           "k5_launches": launches, "wall_s": wall, "stats": s.to_json()})
     return {"dense": 0, "paged": launches}
+
+
+# serve_mesh: the (dp, kv) serving mesh on one card, lanes on cuda:0
+MESH_NEW = 32  # new tokens a request: the first 32 of the plain phases' 160
+MESH_STEADY_LAUNCHES = 1  # timed 8-step launches a turn of steady_step_ms
+
+
+def lane_bytes_per_token(layers) -> float:
+    """Bytes a token holds in one lane's compressed region on the card
+    (tier payload words, pack mins and shifts, f32 scale and zero, every
+    layer) per token slot of its storage: rows x capacity dense, pool
+    pages x page paged; every head of the lane."""
+    total = 0
+    for layer in layers:
+        for t in (layer.k, layer.v):
+            total += sum(x.numel() * x.element_size() for tier in t.tiers
+                         for x in (tier.payload, tier.mins, tier.shifts))
+            total += sum(x.numel() * x.element_size() for x in (t.scale, t.zero))
+    first = layers[0]
+    return total / (first.k.scale.numel() // first.resid_k.shape[1])
+
+
+def mesh_serve(eng, prompts) -> dict:
+    """Serve ``prompts`` (MESH_NEW new tokens each) on ``eng`` with the
+    launch counts from 0: outputs, stats, wall, K2 / K5 launches, peak
+    device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.packed_attention import (
+        fused_packed_attention,
+        fused_packed_attention_paged,
+    )
+    from repro_torch.serving import Request, SlotServer
+
+    server = SlotServer(eng)
+    for i, p in enumerate(prompts):
+        server.submit(Request(rid=i, tokens=p, max_new=MESH_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+    t0 = time.perf_counter()
+    server.run()
+    torch.cuda.synchronize()
+    out = {"wall": time.perf_counter() - t0, "server": server,
+           "k2": fused_packed_attention.launches,
+           "k5": fused_packed_attention_paged.launches,
+           "peak": torch.cuda.max_memory_allocated(),
+           "outputs": {rid: np.asarray(r.output) for rid, r in server.done.items()}}
+    return out
+
+
+def phase_serve_mesh(engine, cfg, dense: dict, paged: dict, device) -> dict:
+    """The serving mesh on one card, every lane on cuda:0 (the lanes run
+    one after another): (a) llama2-7b dense, monolithic, mesh (1, 2): K2
+    at H_kv = 16; (b) llama2-7b paged (the 14-page pool), chunked, mesh
+    (2, 2): K5 at H_kv = 16 with the dp row masks; (c) minitron-4b dense,
+    monolithic, mesh (1, 4): K2 at H_kv = 2, G = 3. The 6 prompts of
+    serve_prompts, MESH_NEW new tokens, 4 slots. Every request bitwise
+    equal to its (1, 1) control with the same engine settings in this
+    process (a, b: the serve and serve_paged phases' first MESH_NEW
+    tokens, as serve_spec holds its runs; c: a (1, 1) run here); K2 / K5
+    launched once a lane, layer and decode step, the other kernel never;
+    every lane's ledger lane (0, 0)'s at the end. Reports decode tok/s
+    beside the control's, the wall ms a step of steady launches beside the
+    control's (in turns, one process), the device bytes a token a lane,
+    summed and over one dp row of lanes (the (1, 1) cache's), and the
+    peak memory."""
+    import numpy as np
+
+    from repro_torch.kernels.sharded import ledgers_agree
+
+    total = {"dense": 0, "paged": 0}
+    cfg_m, eng_m = config_engine("minitron-4b", device, 12, prefill_chunk_pages=0)
+    runs = [("a", cfg, engine, (1, 2), dict(prefill_chunk_pages=0), dense),
+            ("b", cfg, engine, (2, 2),
+             dict(paged=True, page_size=256, pool_pages=14, prefill_chunk_pages=1), paged),
+            ("c", cfg_m, eng_m, (1, 4), dict(prefill_chunk_pages=0), None)]
+    for name, c, base, shape, ekw, ref in runs:
+        n = shape[0] * shape[1]
+        lane_dev = "cuda:0" if base.ecfg.device == "cuda" else base.ecfg.device
+        prompts = serve_prompts(c)
+        control = slot_engine(base, c, **ekw)
+        ctl = None
+        if ref is None:  # no earlier phase served this config: a control run
+            ctl = mesh_serve(control, prompts)
+            cs = ctl["server"].stats
+            ref = {"outputs": ctl["outputs"],
+                   "decode_tok_s": (cs.tokens_out - cs.admitted) / cs.decode_s}
+        want = ref["outputs"]
+        mesh = slot_engine(base, c, mesh_shape=shape, mesh_devices=(lane_dev,) * n, **ekw)
+        got = mesh_serve(mesh, prompts)
+        tag = f"serve_mesh {name} {c.name} {shape}"
+        mode = "paged" if ekw.get("paged") else "dense"
+        used, other = (got["k5"], got["k2"]) if mode == "paged" else (got["k2"], got["k5"])
+        s = got["server"].stats
+        check(len(got["outputs"]) == len(prompts), f"{tag}: not every request finished")
+        for rid, out in got["outputs"].items():
+            check(np.array_equal(out, want[rid][:MESH_NEW]),
+                  f"{tag}: request {rid} differs from its (1, 1) control")
+        check(used == n * c.n_layers * s.decode_steps and other == 0,
+              f"{tag}: attention launches {used} (other {other}) != {n} lanes x "
+              f"{c.n_layers} layers x {s.decode_steps} steps")
+        check(ledgers_agree(got["server"].cache), f"{tag}: lane ledgers diverged")
+        lanes = [lane_bytes_per_token(x) for x in got["server"].cache.lanes]
+        steady = steady_step_ms({"control": control, "mesh": mesh}, c,
+                                launches=MESH_STEADY_LAUNCHES)
+        emit({"phase": "serve_mesh", "run": name, "arch": c.name, "mesh": list(shape),
+              "devices": [lane_dev] * n, "mode": mode, "n_layers": c.n_layers,
+              "n_kv_heads": c.n_kv_heads, "lane_kv_heads": c.n_kv_heads // shape[1],
+              "G": c.n_heads // c.n_kv_heads, "requests": len(prompts),
+              "max_new": MESH_NEW, "decode_steps": s.decode_steps,
+              "attention_launches": used, "bitwise_equal_control": True,
+              "decode_tok_s": (s.tokens_out - s.admitted) / s.decode_s,
+              "control_decode_tok_s": ref["decode_tok_s"],
+              "control_max_new": MESH_NEW if ctl else 160,
+              "wall_s": got["wall"],
+              "steady_ms_per_step": steady,
+              "steady_ratio": statistics.median(steady["mesh"])
+              / statistics.median(steady["control"]),
+              "device_bytes_per_token_lane": lanes,
+              "device_bytes_per_token_sum": sum(lanes),
+              "device_bytes_per_token_one_dp_row": sum(lanes[:shape[1]]),
+              "peak_memory_bytes": got["peak"]})
+        if ctl is not None:
+            total[mode] += ctl["k5" if mode == "paged" else "k2"]
+        total[mode] += used
+        del control, mesh, ctl, got
+    free_engine(eng_m)
+    return total
 
 
 def compressed_bytes_per_token(cfg, engine):
@@ -3147,6 +3295,7 @@ def main() -> int:
     preempt = timed(phase_serve_preempt, engine, cfg)
     session = timed(phase_serve_session, engine, cfg)
     faults = timed(phase_serve_faults, engine, cfg)
+    mesh = timed(phase_serve_mesh, engine, cfg, serve, serve_paged, device)
     mv = timed(phase_matvec, engine, device)
     configs = timed(phase_serve_configs, smollm, device)
     # qwen3-32b's 65.5 GB of weights need the card to themselves
@@ -3173,11 +3322,12 @@ def main() -> int:
         row("fused_packed_attention", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:172", k2,
             serve["launches"] + spec["dense"] + configs["launches"] + preempt["dense"]
-            + session["dense"] + moe_runs["dense"] + vlm["launches"] + rglru["launches"]),
+            + session["dense"] + mesh["dense"] + moe_runs["dense"] + vlm["launches"]
+            + rglru["launches"]),
         row("fused_packed_attention_paged", "packed_attention.cu",
             "src/repro/kernels/packed_attention.py:375", k5,
             serve_paged["launches"] + spec["paged"] + prefix["launches"] + preempt["paged"]
-            + session["paged"] + faults["paged"] + moe_runs["paged"]),
+            + session["paged"] + faults["paged"] + mesh["paged"] + moe_runs["paged"]),
         row("kpack_tier_scores", "tier_matvec.cu",
             "src/repro/kernels/kpack_matvec.py:69", mv["K3"], mv["K3"]["launches"]),
         row("vpack_tier_out", "tier_matvec.cu",

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.cache import gather_paged
+from ..core.cache import gather_paged, slice_compressed
 from ..core.tiered import (
     TieredCache,
     gather_page_meta,
@@ -245,19 +245,34 @@ def paged_decode_attention(q, cache, sm_scale: float, *,
     cache: a paged ``core.cache.LayerKVCache`` (compressed policy). The
     ``ref`` backend gathers the first ``n_bucket`` tokens' pages into the
     dense layout and runs the oracle; ``fused`` launches K5 on the pool."""
-    n_tokens = cache.capacity if n_bucket is None else min(n_bucket, cache.capacity)
     if backend == "ref":
+        n_tokens = cache.capacity if n_bucket is None else min(n_bucket, cache.capacity)
         read = gather_paged(cache, n_tokens)
         return ref.packed_decode_attention_ref(
             q, read.k, read.v, read.resid_k, read.resid_v, read.n_comp,
             read.n_resid, sm_scale)
     _check_backend(backend)
-    o_c, m_c, l_c = fused_packed_attention_paged(
-        q, cache.k, cache.v, cache.pages.page_table, cache.n_comp, n_tokens,
-        sm_scale, page_size=cache.pages.page_size, tile_l=tile_l)
+    o_c, m_c, l_c = compressed_partials(q, cache, sm_scale, n_bucket=n_bucket,
+                                        tile_l=tile_l)
     o_r, m_r, l_r = _residual_partials(q, cache.resid_k, cache.resid_v,
                                        cache.n_resid, sm_scale)
     return merge_partials(o_c, m_c, l_c, o_r, m_r, l_r)
+
+
+def compressed_partials(q, cache, sm_scale: float, *, n_bucket: int | None = None,
+                        tile_l: int = 256):
+    """The compressed region's attention partials (o_unnorm, m, l) of one
+    layer's cache (compressed policy) in ONE kernel launch: K5 on a paged
+    pool (``n_bucket`` tokens of it), K2 on a dense cache's
+    ``n_bucket``-token prefix view."""
+    if cache.pages is None:
+        read = slice_compressed(cache, n_bucket)
+        return fused_packed_attention(q, read.k, read.v, read.n_comp, sm_scale,
+                                      tile_l=tile_l)
+    n_tokens = cache.capacity if n_bucket is None else min(n_bucket, cache.capacity)
+    return fused_packed_attention_paged(
+        q, cache.k, cache.v, cache.pages.page_table, cache.n_comp, n_tokens,
+        sm_scale, page_size=cache.pages.page_size, tile_l=tile_l)
 
 
 dense_decode_attention = ref.dense_decode_attention_ref

@@ -93,7 +93,18 @@ def main(argv=None) -> int:
                     help="spill host-tier LRU victims here (default: drop them)")
     ap.add_argument("--stats-json", default=None, metavar="PATH",
                     help="write the final SlotStats as JSON to PATH")
+    ap.add_argument("--mesh", default="1,1", metavar="DP,KV",
+                    help="serving mesh 'dp,kv': pool payloads split by KV head "
+                    "over kv lanes, attention rows over dp (1,1 = one device; "
+                    "tokens are bitwise the same either way). --device cpu "
+                    "puts every lane on the CPU; cuda takes one card a lane")
     args = ap.parse_args(argv)
+
+    try:
+        mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+        assert len(mesh_shape) == 2
+    except (ValueError, AssertionError):
+        raise SystemExit(f"--mesh takes 'dp,kv' (e.g. 1,2), got {args.mesh!r}")
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
@@ -121,11 +132,17 @@ def main(argv=None) -> int:
                         session_cache=args.session_cache,
                         session_cache_mb=args.session_cache_mb,
                         session_ttl_s=args.session_ttl_s,
-                        session_disk_dir=args.session_disk_dir)
+                        session_disk_dir=args.session_disk_dir,
+                        mesh_shape=mesh_shape)
     t0 = time.time()
     engine = Engine(cfg, params, get_policy(args.policy), ecfg)
     print(f"engine built in {time.time() - t0:.1f}s; policy={args.policy}, "
           f"backend={args.backend}, device={args.device}")
+    if engine.mesh is not None:
+        print(f"serving mesh dp={mesh_shape[0]} x kv={mesh_shape[1]} over "
+              f"{mesh_shape[0] * mesh_shape[1]} lanes: pool payloads "
+              f"sharded by KV head ({cfg.n_kv_heads} -> "
+              f"{cfg.n_kv_heads // mesh_shape[1]}/lane), page ledger replicated")
     ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
     if ks is not None:
         print(f"calibrated K tiers {ks.widths}x{ks.counts}; "
@@ -211,7 +228,12 @@ def main(argv=None) -> int:
     print(f"fused kernel launches: {sum(k.launches for k in kernels)} ("
           + ", ".join(f"{k.__name__} {k.launches}" for k in kernels)
           + f"; {where})")
-    comp = tree_bytes(server.cache)
+    if engine.mesh is None:
+        comp = tree_bytes(server.cache)
+    else:  # one dp row of lanes holds every head once
+        lanes = server.cache.lanes
+        print(f"mesh cache bytes a lane: {[tree_bytes(x) for x in lanes]}")
+        comp = tree_bytes(lanes[:engine.mesh.n_kv])
     if cfg.family == "rwkv6":
         print(f"recurrent state bytes ({args.batch} rows): {comp:,}")
         return 0

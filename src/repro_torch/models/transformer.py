@@ -12,6 +12,15 @@ stacked on a leading ``n_layers`` axis, as the reference's are; the cache
 is a list of ``LayerKVCache``, one per layer, updated IN PLACE (the
 reference donated it).
 
+On a serving mesh the cache is a ``kernels.sharded.MeshCache``: every
+lane holds its own per-layer caches over its KV-head block. Projections,
+norms, the MLP and the head still run once, on the controller, at the
+single-device shapes; each lane does the cache writes and the decode
+attention of its head block (``lane_lists``), and ``Lane.merge``
+assembles the attention output. Every other attention (prefill, chunk,
+prefix segment) runs at full heads on the controller, over context
+gathered from the lanes, so its shapes are the single-device ones.
+
 An MoE MLP routes only the tokens the reference feeds it: where a call
 site pads its hidden state with zero rows (``decode_step``'s and
 ``prefill_chunk``'s ``rows``), ``_apply_mlp`` passes the real positions
@@ -48,8 +57,18 @@ from ..core.cache import (
 from ..core.tiered import dequantize_tiered, slice_tiered_prefix
 from ..kernels import (
     dense_decode_attention,
+    merge_partials,
     packed_decode_attention,
     paged_decode_attention,
+)
+from ..kernels.ops import _residual_partials, compressed_partials
+from ..kernels.sharded import (
+    SINGLE,
+    Lane,
+    MeshCache,
+    join_layers,
+    lane_lists,
+    split_layer,
 )
 from ..utils import div, round_up, tree_unbind
 from .layers import (
@@ -231,25 +250,44 @@ def encode(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 
 def alloc_cache(cfg: ArchConfig, pack_cfg: PackKVConfig, batch: int,
-                capacity: int, device="cuda") -> list[LayerKVCache]:
-    """One dense ``LayerKVCache`` per layer."""
-    return [alloc_layer_cache(pack_cfg, batch, cfg.n_kv_heads, cfg.hd,
-                              capacity, device=device)
-            for _ in range(cfg.n_layers)]
+                capacity: int, device="cuda", mesh=None):
+    """One dense ``LayerKVCache`` per layer; on a ``mesh``, a ``MeshCache``
+    whose lanes hold theirs over their head block, on their device."""
+    def alloc(h_kv: int, dev):
+        return [alloc_layer_cache(pack_cfg, batch, h_kv, cfg.hd, capacity,
+                                  device=dev) for _ in range(cfg.n_layers)]
+
+    if mesh is None:
+        return alloc(cfg.n_kv_heads, device)
+    return MeshCache(mesh, [alloc(lane.heads(cfg.n_kv_heads), lane.device)
+                            for lane in mesh.lanes])
 
 
-def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
-            capacity: int, batch: dict):
-    """Process the prompt; returns (last-token logits f32 [B, V], cache).
+def _lane_rows(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
+               lanes: list[Lane]):
+    """(rows, store): ``store(k, v)`` compresses one layer's K/V
+    ([B, H_kv, S, hd]) into a fresh cache per lane, over the lane's head
+    block on its device (``prefill_cache``), and appends it to the lane's
+    list in ``rows``."""
+    rows = [[] for _ in lanes]
 
-    batch["tokens"]: int [B, S] (a VLM's ``batch["patches"]``: [B, P, D],
-    its positions before the tokens'). Every layer's K/V is compressed
-    into its cache as soon as the layer is done (compress-as-you-prefill).
-    """
+    def store(k: torch.Tensor, v: torch.Tensor) -> None:
+        for lane, out in zip(lanes, rows):
+            kl, vl = lane.put(k), lane.put(v)
+            layer = alloc_layer_cache(pack_cfg, k.shape[0], kl.shape[1], cfg.hd,
+                                      capacity, device=kl.device)
+            out.append(prefill_cache(layer, kl, vl))
+
+    return rows, store
+
+
+def _prefill_forward(params: dict, cfg: ArchConfig, batch: dict, store):
+    """The prefill forward: every layer's K/V goes to ``store(k, v)`` as
+    soon as the layer is done (compress-as-you-prefill). Returns the
+    last-token logits f32 [B, V]."""
     h = _embed_inputs(params, cfg, batch)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)
-    cache = []
     for i in range(cfg.n_layers):
         p = _layer(params, i)
         q, k, v = _qkv(p, h, cfg, positions)
@@ -257,10 +295,23 @@ def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
         h = h + _apply_mlp(cfg, p, h, "prefill")[0]
-        layer = alloc_layer_cache(pack_cfg, B, cfg.n_kv_heads, cfg.hd,
-                                  capacity, device=h.device)
-        cache.append(prefill_cache(layer, k, v))
-    return _head(params, h), cache
+        store(k, v)
+    return _head(params, h)
+
+
+def prefill(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
+            capacity: int, batch: dict, mesh=None):
+    """Process the prompt; returns (last-token logits f32 [B, V], cache; a
+    ``MeshCache`` on a ``mesh``).
+
+    batch["tokens"]: int [B, S] (a VLM's ``batch["patches"]``: [B, P, D],
+    its positions before the tokens'). Every layer's K/V is compressed
+    into its cache as soon as the layer is done (compress-as-you-prefill).
+    """
+    rows, store = _lane_rows(cfg, pack_cfg, capacity,
+                             [SINGLE] if mesh is None else mesh.lanes)
+    logits = _prefill_forward(params, cfg, batch, store)
+    return logits, rows[0] if mesh is None else MeshCache(mesh, rows)
 
 
 def _insert_rows(cache: list[LayerKVCache], slot: int,
@@ -289,8 +340,11 @@ def prefill_into_slot(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
     if pack_cfg.paged:
         pack_cfg, capacity, n_pages = paged_mini_spec(pack_cfg,
                                                       batch["tokens"].shape[-1])
-    logits, rows = prefill(params, cfg, pack_cfg, capacity, batch)
-    _insert_rows(cache, slot, rows, n_pages)
+    sets = lane_lists(cache)
+    rows, store = _lane_rows(cfg, pack_cfg, capacity, [lane for lane, _ in sets])
+    logits = _prefill_forward(params, cfg, batch, store)
+    for (_, layers), r in zip(sets, rows):
+        _insert_rows(layers, slot, r, n_pages)
     return logits, cache
 
 
@@ -362,11 +416,12 @@ def prefill_chunk_insert(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
     if pack_cfg.paged:
         pack_cfg, capacity, n_pages = paged_mini_spec(pack_cfg,
                                                       scratch["k"].shape[-2])
-    dev = scratch["k"].device
-    rows = [prefill_cache(alloc_layer_cache(pack_cfg, 1, cfg.n_kv_heads, cfg.hd,
-                                            capacity, device=dev), k, v)
-            for k, v in zip(scratch["k"], scratch["v"])]
-    _insert_rows(cache, slot, rows, n_pages)
+    sets = lane_lists(cache)
+    rows, store = _lane_rows(cfg, pack_cfg, capacity, [lane for lane, _ in sets])
+    for k, v in zip(scratch["k"], scratch["v"]):
+        store(k, v)
+    for (_, layers), r in zip(sets, rows):
+        _insert_rows(layers, slot, r, n_pages)
     return cache
 
 
@@ -392,26 +447,37 @@ def _prefill_segment(params: dict, cfg: ArchConfig, pack_cfg: PackKVConfig,
     B, S, _ = h.shape
     positions = n_ctx + torch.arange(S, device=h.device)
     sm_scale = 1.0 / (cfg.hd ** 0.5)
+    sets = lane_lists(mini)
     for i in range(cfg.n_layers):
         p = _layer(params, i)
         q, k, v = _qkv(p, h, cfg, positions)
-        layer = mini[i]
         if n_ctx:
-            if pack_cfg.policy == "none":
-                ck, cv = layer.raw_k[..., :n_ctx, :], layer.raw_v[..., :n_ctx, :]
-            else:
-                ck = dequantize_tiered(slice_tiered_prefix(layer.k, n_ctx)).transpose(-1, -2)
-                cv = dequantize_tiered(slice_tiered_prefix(layer.v, n_ctx)).transpose(-1, -2)
-            k_all = torch.cat([ck.to(torch.float32), k.to(torch.float32)], dim=2)
-            v_all = torch.cat([cv.to(torch.float32), v.to(torch.float32)], dim=2)
+            # the context at full heads: dp row 0's head blocks, gathered
+            ctx = [_segment_context(layers[i], pack_cfg, n_ctx) if lane.dp == 0
+                   else (None, None) for lane, layers in sets]
+            merge = lambda j: sets[0][0].merge(
+                [None if c[j] is None else c[j].to(h.device) for c in ctx], 1)
+            k_all = torch.cat([merge(0).to(torch.float32), k.to(torch.float32)], dim=2)
+            v_all = torch.cat([merge(1).to(torch.float32), v.to(torch.float32)], dim=2)
         else:
             k_all, v_all = k, v
         attn = ctx_attention(q, k_all, v_all, n_ctx, sm_scale)
         attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
         h = h + _apply_mlp(cfg, p, h, "segment")[0]
-        prefill_append(layer, k, v, calibrate=n_ctx == 0)
+        for lane, layers in sets:
+            prefill_append(layers[i], lane.put(k), lane.put(v), calibrate=n_ctx == 0)
     return _head(params, h), mini
+
+
+def _segment_context(layer: LayerKVCache, pack_cfg: PackKVConfig, n_ctx: int):
+    """A prefix segment's read-only context, the mini-cache's first
+    ``n_ctx`` tokens as (K, V) [B, H_kv, n_ctx, hd]: raw (policy 'none') or
+    dequantized."""
+    if pack_cfg.policy == "none":
+        return layer.raw_k[..., :n_ctx, :], layer.raw_v[..., :n_ctx, :]
+    return tuple(dequantize_tiered(slice_tiered_prefix(tc, n_ctx)).transpose(-1, -2)
+                 for tc in (layer.k, layer.v))
 
 
 def prefix_chunk_bounds(pack_cfg: PackKVConfig, prompt_len: int,
@@ -436,12 +502,15 @@ def prefix_chunk_init(cfg: ArchConfig, pack_cfg: PackKVConfig, capacity: int,
     permutations (``k_perm`` / ``v_perm``: [n_layers, H_kv, D], or None
     for policy 'none') when ``n_prefix > 0``."""
     dense_cfg, cap_mini, _ = paged_mini_spec(pack_cfg, prompt_len)
-    mini = alloc_cache(cfg, dense_cfg, 1, cap_mini, device)
+    mesh = cache.mesh if isinstance(cache, MeshCache) else None
+    mini = alloc_cache(cfg, dense_cfg, 1, cap_mini, device, mesh)
     if n_prefix:
-        for i, (layer, m) in enumerate(zip(cache, mini)):
-            seed_prefix_from_pages(layer, m, prefix_phys, n_prefix,
-                                   None if k_perm is None else k_perm[i],
-                                   None if v_perm is None else v_perm[i])
+        for (lane, layers), (_, minis) in zip(lane_lists(cache), lane_lists(mini)):
+            phys = prefix_phys.to(minis[0].n_comp.device)
+            for i, (layer, m) in enumerate(zip(layers, minis)):
+                seed_prefix_from_pages(layer, m, phys, n_prefix,
+                                       None if k_perm is None else lane.put(k_perm[i], 0),
+                                       None if v_perm is None else lane.put(v_perm[i], 0))
     return mini
 
 
@@ -460,10 +529,12 @@ def prefix_chunk_insert(pack_cfg: PackKVConfig, cache: list[LayerKVCache],
     pages into row ``slot`` by reference and scatter the rest of the
     mini-cache into fresh pages, IN PLACE."""
     _, _, n_pages = paged_mini_spec(pack_cfg, prompt_len)
-    for dst, src in zip(cache, mini):
-        insert_row_paged(dst, slot, src, n_pages,
-                         n_shared=n_prefix // pack_cfg.page_size,
-                         shared_phys=prefix_phys)
+    for (_, layers), (_, minis) in zip(lane_lists(cache), lane_lists(mini)):
+        phys = prefix_phys.to(layers[0].n_comp.device)
+        for dst, src in zip(layers, minis):
+            insert_row_paged(dst, slot, src, n_pages,
+                             n_shared=n_prefix // pack_cfg.page_size,
+                             shared_phys=phys)
     return cache
 
 
@@ -505,36 +576,54 @@ def prefill_into_slot_prefix(params: dict, cfg: ArchConfig,
     return logits, cache
 
 
-def reset_cache_slot(cache: list[LayerKVCache], slot: int):
+def reset_cache_slot(cache, slot: int):
     """Free row ``slot`` of every layer (counters to zero; a paged row
-    releases its pages), IN PLACE."""
-    for layer in cache:
-        reset_slot(layer, slot)
+    releases its pages), IN PLACE, in every lane."""
+    for _, layers in lane_lists(cache):
+        for layer in layers:
+            reset_slot(layer, slot)
     return cache
 
 
-def evacuate_cache_slot(cache: list[LayerKVCache], slot: int, n_pages: int = 0,
-                        n_shared: int = 0):
+def evacuate_cache_slot(cache, slot: int, n_pages: int = 0, n_shared: int = 0):
     """Swap row ``slot`` out of every layer (``core.cache.evacuate_row``):
     returns (the cache with the row freed IN PLACE, the per-layer dense
     B=1 minis). ``n_pages`` / ``n_shared``: the scheduler's host mirror
-    of the row's live pages and its shared-prefix pages (paged only)."""
-    return evacuate_row(cache, slot, n_pages, n_shared)
+    of the row's live pages and its shared-prefix pages (paged only). On a
+    mesh every lane evacuates its block and the minis are put back
+    together at full heads on lane (0, 0)'s device: the single-device
+    engine's minis, byte for byte."""
+    if not isinstance(cache, MeshCache):
+        return evacuate_row(cache, slot, n_pages, n_shared)
+    minis = [evacuate_row(layers, slot, n_pages, n_shared)[1]
+             for layers in cache.lanes]
+    dev = cache.lanes[0][0].n_comp.device
+    return cache, [join_layers([m[i] for m in minis[:cache.mesh.n_kv]],
+                               cache.mesh, dev) for i in range(len(cache))]
 
 
-def restore_cache_slot(cache: list[LayerKVCache], slot: int, mini, shared_phys,
+def restore_cache_slot(cache, slot: int, mini, shared_phys,
                        n_pages: int = 0, n_shared: int = 0):
     """Stream evacuated minis back into row ``slot`` of every layer, IN
     PLACE (``core.cache.restore_row``): shared-prefix pages mapped by
     reference, the suffix scattered into fresh pages. Pure data movement:
-    no forward pass."""
-    return restore_row(cache, slot, mini, shared_phys, n_pages, n_shared)
+    no forward pass. On a mesh each lane restores its head block of the
+    full-head minis."""
+    if not isinstance(cache, MeshCache):
+        return restore_row(cache, slot, mini, shared_phys, n_pages, n_shared)
+    for lane, layers in lane_lists(cache):
+        restore_row(layers, slot, [split_layer(m, lane, cache.mesh) for m in mini],
+                    shared_phys.to(lane.device), n_pages, n_shared)
+    return cache
 
 
-def mask_free(cache: list[LayerKVCache], active):
-    """Zero the counters of inactive rows in every layer, IN PLACE."""
-    for layer in cache:
-        mask_free_slots(layer, active)
+def mask_free(cache, active):
+    """Zero the counters of inactive rows in every layer, IN PLACE, in
+    every lane."""
+    for _, layers in lane_lists(cache):
+        act = torch.as_tensor(active, device=layers[0].n_comp.device)
+        for layer in layers:
+            mask_free_slots(layer, act)
     return cache
 
 
@@ -561,6 +650,53 @@ def _attend(layer: LayerKVCache, q: torch.Tensor, sm_scale: float,
     return packed_decode_attention(
         q, read.k, read.v, read.resid_k, read.resid_v, read.n_comp, n_resid,
         sm_scale, backend=backend)
+
+
+def _layer_attention(cache, owned, i: int, q, k, v, append, sm_scale: float,
+                     backend: str, n_bucket: int | None) -> torch.Tensor:
+    """Layer ``i``'s cache write and decode attention over a window of w
+    positions (w = 1: a decode step): ``append(layer, k, v)`` in every lane
+    with its head block of k / v [B, H_kv, w, hd], then position j attends
+    with j more residual tokens than the counter holds (``_attend``).
+    q: [B, H, w, hd] -> f32 [B, H, w, hd] on q's device.
+
+    On a mesh, with the kernels (policy packkv, backend fused), each lane
+    launches K2 / K5 over its head block, reading only its ``owned`` rows
+    (``Lane.mask_read``); the residual buffer's partials and the merge run
+    at full heads on q's device over the residual gathered from the lanes,
+    since PyTorch's reductions pick their launch layout by shape and would
+    sum a head block in another order on the GPU. Without a kernel the
+    whole attention runs at full heads over the layer put back together."""
+    sets = lane_lists(cache)
+    w = q.shape[2]
+    layers = [append(ls[i], lane.put(k), lane.put(v)) for lane, ls in sets]
+    plain = lambda layer: _stack([_attend(layer, q[:, :, j], sm_scale, backend,
+                                          n_bucket, ahead=j) for j in range(w)])
+    if len(sets) == 1:
+        return plain(layers[0])
+    mesh, dev, lane0 = cache.mesh, q.device, sets[0][0]
+    row0 = layers[:mesh.n_kv]  # dp row 0: every row of every head block
+    if row0[0].cfg.policy == "none" or backend != "fused":
+        return plain(join_layers(row0, mesh, dev))
+    rk, rv = (lane0.merge([getattr(x, name).to(dev) for x in row0], 1)
+              for name in ("resid_k", "resid_v"))
+    n_resid = row0[0].n_resid.to(dev)
+    out = []
+    for j in range(w):
+        parts = [[x.to(dev) for x in compressed_partials(
+                     lane.put(q[:, :, j]), lane.mask_read(layer, own), sm_scale,
+                     n_bucket=n_bucket)]
+                 for (lane, _), layer, own in zip(sets, layers, owned)]
+        o, m, l = (lane0.merge([p[t] for p in parts], 1, rows=owned[0] is not None)
+                   for t in range(3))
+        out.append(merge_partials(o, m, l, *_residual_partials(
+            q[:, :, j], rk, rv, n_resid + j if j else n_resid, sm_scale)))
+    return _stack(out)
+
+
+def _stack(outs: list[torch.Tensor]) -> torch.Tensor:
+    """Per-position outputs [B, H, hd] -> [B, H, w, hd] (a view for w = 1)."""
+    return outs[0][:, :, None] if len(outs) == 1 else torch.stack(outs, dim=2)
 
 
 def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -590,16 +726,19 @@ def decode_step(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
     """
     h = _pad_rows(params["embed"][token.to(torch.int64)], rows)
     B = h.shape[0]
-    # per-row positions; counters are identical in every layer
-    pos = cache[0].n_comp + cache[0].n_resid
+    # per-row positions; counters are identical in every layer and lane
+    led = lane_lists(cache)[0][1][0]
+    pos = (led.n_comp + led.n_resid).to(h.device)
     positions = pos[:, None, None]
     sm_scale = 1.0 / (cfg.hd ** 0.5)
-    flush = flush_rows(cache[0])  # one host read per step, not per layer
+    flush = flush_rows(led)  # one host read per step, not per layer
+    owned = [lane.owned_rows(B) for lane, _ in lane_lists(cache)]
+    append = lambda layer, k, v: append_token(layer, k, v, flush)
     for i in range(cfg.n_layers):
         p = _layer(params, i)
         q, k, v = _qkv(p, h, cfg, positions)
-        layer = append_token(cache[i], k[:, :, :1], v[:, :, :1], flush)
-        attn = _attend(layer, q[:, :, 0], sm_scale, backend, n_bucket)
+        attn = _layer_attention(cache, owned, i, q[:, :, :1], k[:, :, :1],
+                                v[:, :, :1], append, sm_scale, backend, n_bucket)
         attn = _pad_rows(attn.reshape(B, 1, cfg.n_heads * cfg.hd), rows)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
         h = h + _apply_mlp(cfg, p, h, "decode", n_real=1)[0]
@@ -635,17 +774,21 @@ def verify_steps(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
     ``decode_step(rows=w)`` gives its own."""
     h = params["embed"][tokens.to(torch.int64)]
     B, w = tokens.shape
-    pos = cache[0].n_comp + cache[0].n_resid  # pre-append totals
+    sets = lane_lists(cache)
+    led = sets[0][1][0]
+    pos = (led.n_comp + led.n_resid).to(h.device)  # pre-append totals
     positions = pos[:, None, None] + torch.arange(w, device=h.device)
     sm_scale = 1.0 / (cfg.hd ** 0.5)
     lens = lens.to(torch.int32)
-    flush = flush_rows(cache[0])
+    flush = flush_rows(led)
+    owned = [lane.owned_rows(B) for lane, _ in sets]
+    append = lambda layer, k, v: append_window(
+        layer, k, v, lens.to(layer.n_comp.device), flush)
     for i in range(cfg.n_layers):
         p = _layer(params, i)
         q, k, v = _qkv(p, h, cfg, positions)
-        layer = append_window(cache[i], k, v, lens, flush)
-        attn = torch.stack([_attend(layer, q[:, :, j], sm_scale, backend,
-                                    n_bucket, ahead=j) for j in range(w)], dim=2)
+        attn = _layer_attention(cache, owned, i, q, k, v, append, sm_scale,
+                                backend, n_bucket)
         attn = attn.transpose(1, 2).reshape(B, w, cfg.n_heads * cfg.hd)
         h = h + attn.to(h.dtype) @ p["attn"]["wo"]
         h = h + _apply_mlp(cfg, p, h, "verify")[0]
@@ -656,8 +799,10 @@ def verify_steps(params: dict, cfg: ArchConfig, cache: list[LayerKVCache],
     match = (hat[:, :-1] == tokens[:, 1:].to(torch.int32)) & \
         (offs[None, :] < (lens - 1)[:, None])
     n_accept = torch.cumprod(match.to(torch.int32), dim=1).sum(1).to(torch.int32)
-    for layer in cache:
-        commit_window(layer, n_accept)
+    for _, layers in sets:
+        acc = n_accept.to(layers[0].n_comp.device)
+        for layer in layers:
+            commit_window(layer, acc)
     mask_free(cache, active)
     return hat, n_accept, cache
 

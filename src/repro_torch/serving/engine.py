@@ -54,7 +54,14 @@ row out to host memory (``core.cache.evacuate_row`` into a
 optional disk spill and TTL); a returning turn restores it and ingests
 only its new suffix, teacher-forced through the decode launches.
 Cancellation, deadlines and a deterministic ``FaultPlan`` retire work
-through the same paths. Meshes are not ported yet (ROADMAP.md).
+through the same paths.
+
+MESH engines (``EngineConfig.mesh_shape`` other than (1, 1)) serve on a
+``(dp, kv)`` grid of devices under this one controller
+(``kernels/sharded.py``): pool payloads, residual buffers and channel
+permutations split by whole KV heads over ``kv``, the page ledger and
+the row counters replicated in every lane, attention rows partitioned
+over ``dp``. Tokens equal the (1, 1) engine's bitwise.
 
 Every family serves through this one engine: the recurrent ones (rwkv6,
 hybrid_rglru) admit each request by a B=1 prefill (or its chunks) written
@@ -83,6 +90,7 @@ from ..core.cache import (
     release_pages,
 )
 from ..distributed.fault import FaultPlan, StragglerMonitor
+from ..kernels.sharded import Mesh, lane_lists, ledgers_agree
 from ..models import get_model
 from ..utils import cdiv, to_device
 
@@ -127,8 +135,17 @@ class EngineConfig:
     session_disk_dir: str | None = None  # spill LRU victims here through
     #   ``checkpoint.sharded.save_mini`` (None = drop them)
     debug_invariants: bool = False  # check refcount conservation after every
-    #   admit/retire (a device read per check: tests and bring-up only)
-    device: str = "cuda"
+    #   admit/retire, and on a mesh that every lane's ledger is lane
+    #   (0, 0)'s (a device read per check: tests and bring-up only)
+    device: str = "cuda"  # the controller's device
+    # multi-device serving (kernels/sharded.py):
+    mesh_shape: tuple = (1, 1)  # (dp, kv): data-parallel row lanes x
+    #   KV-head lanes. (1, 1) = off (the single-device engine). Otherwise
+    #   every cache-touching op runs in each lane on its head block, and
+    #   tokens stay bitwise equal to (1, 1); recurrent families refuse it
+    mesh_devices: tuple | None = None  # the lanes' devices, dp-major; may
+    #   repeat one ("cuda:0",) * n. None: every lane on "cpu" for a cpu
+    #   engine, cuda:0 .. cuda:n-1 for a cuda one
 
 
 class Engine:
@@ -144,6 +161,7 @@ class Engine:
         self.ecfg = ecfg
         self.device = torch.device(ecfg.device)
         self.api = get_model(cfg)
+        self.mesh = self._build_mesh(cfg, ecfg)
         if ecfg.prefix_cache:
             if self.api.prefill_prefix is None:
                 raise ValueError(
@@ -202,6 +220,45 @@ class Engine:
                          if ecfg.calibrate and pack_cfg.policy == "packkv"
                          and cfg.family != "rwkv6" else pack_cfg)
 
+    def _build_mesh(self, cfg: ArchConfig, ecfg: EngineConfig) -> Mesh | None:
+        """The serving mesh, or None at (1, 1); refuses what cannot shard."""
+        mesh_shape = tuple(ecfg.mesh_shape)
+        if mesh_shape == (1, 1):
+            return None
+        n_dp, n_kv = mesh_shape
+        if n_dp < 1 or n_kv < 1:
+            raise ValueError(f"mesh_shape must be positive, got {mesh_shape}")
+        if cfg.family in ("rwkv6", "hybrid_rglru"):
+            raise ValueError(
+                f"family {cfg.family!r} cannot serve --mesh: its "
+                "recurrent slot state has no KV-head axis to shard "
+                "over the 'kv' mesh axis — drop --mesh (single-device "
+                "serving still applies)")
+        if cfg.n_kv_heads % n_kv:
+            raise ValueError(
+                f"n_kv_heads {cfg.n_kv_heads} not divisible by "
+                f"kv_shards {n_kv} — pool payloads shard by whole KV heads")
+        n = n_dp * n_kv
+        devices = ecfg.mesh_devices
+        if devices is None and self.device.type == "cpu":
+            devices = ("cpu",) * n
+        elif devices is None:
+            n_dev = torch.cuda.device_count()
+            if n_dev < n:
+                raise ValueError(
+                    f"mesh {n_dp}x{n_kv} needs {n} devices, have {n_dev} "
+                    "(one card: name it more than once in "
+                    f"EngineConfig.mesh_devices, e.g. ('cuda:0',) * {n})")
+            devices = tuple(f"cuda:{i}" for i in range(n))
+        return Mesh(n_dp, n_kv, tuple(devices))
+
+    def _checked(self, cache):
+        """``cache``, after checking (debug mode, on a mesh) that every
+        lane's ledger is lane (0, 0)'s and every dp twin's bytes its own."""
+        if self.mesh is not None and self.ecfg.debug_invariants:
+            assert ledgers_agree(cache), "mesh lanes diverged"
+        return cache
+
     # -- calibration --------------------------------------------------------
     def _calibrate(self, pack_cfg: PackKVConfig) -> PackKVConfig:
         S = self.ecfg.calib_tokens
@@ -250,8 +307,9 @@ class Engine:
         inputs = {"tokens": self._tokens(batch["tokens"])}
         if "patches" in batch:
             inputs["patches"] = self._patches(batch["patches"])
+        mesh = {} if self.mesh is None else {"mesh": self.mesh}
         return self.api.prefill(self.params, self.cfg, self.pack_cfg,
-                                self.ecfg.capacity, inputs)
+                                self.ecfg.capacity, inputs, **mesh)
 
     @property
     def rows(self) -> int:
@@ -259,10 +317,10 @@ class Engine:
         return self.ecfg.spec_k + 1
 
     def decode(self, cache, token, n_bucket: int | None = None):
-        return self.api.decode_step(self.params, self.cfg, cache,
-                                    self._tokens(token),
-                                    backend=self.ecfg.backend, n_bucket=n_bucket,
-                                    rows=self.rows)
+        logits, cache = self.api.decode_step(
+            self.params, self.cfg, cache, self._tokens(token),
+            backend=self.ecfg.backend, n_bucket=n_bucket, rows=self.rows)
+        return logits, self._checked(cache)
 
     def decode_chunk(self, cache, token, active, n_steps: int,
                      eos_id: int | None, n_bucket: int | None = None):
@@ -275,7 +333,7 @@ class Engine:
             n_steps, -1 if eos_id is None else eos_id,
             t_max=self.ecfg.decode_chunk, backend=self.ecfg.backend,
             n_bucket=n_bucket, rows=self.rows)
-        return toks.cpu().numpy(), n_exec, cache
+        return toks.cpu().numpy(), n_exec, self._checked(cache)
 
     def decode_verify(self, cache, tokens, lens, active,
                       n_bucket: int | None = None):
@@ -290,7 +348,7 @@ class Engine:
             torch.as_tensor(np.asarray(active, bool), device=self.device),
             backend=self.ecfg.backend, n_bucket=n_bucket)
         both = torch.cat([hat, n_accept[:, None]], dim=1).cpu().numpy()
-        return both[:, :-1], both[:, -1], cache
+        return both[:, :-1], both[:, -1], self._checked(cache)
 
     def bucket_for(self, n_max: int) -> int | None:
         """Launch bucket covering ``n_max`` compressed tokens (None = full).
@@ -305,16 +363,18 @@ class Engine:
         return bucket_length(n_max, self.ecfg.capacity, unit)
 
     def alloc_slot_cache(self):
-        """Slot-table decode cache: max_batch rows, per-row counters."""
+        """Slot-table decode cache: max_batch rows, per-row counters (on a
+        mesh, a ``MeshCache``: each lane's head block on its device)."""
+        mesh = {} if self.mesh is None else {"mesh": self.mesh}
         return self.api.alloc_cache(self.cfg, self.pack_cfg, self.ecfg.max_batch,
-                                    self.ecfg.capacity, self.device)
+                                    self.ecfg.capacity, self.device, **mesh)
 
     def insert_request(self, cache, slot: int, tokens):
         """Single-slot prefill-insert; returns (last logits [V], cache)."""
         logits, cache = self.api.prefill_into_slot(
             self.params, self.cfg, self.pack_cfg, self.ecfg.capacity, cache,
             slot, {"tokens": self._tokens(tokens)[None]})
-        return logits[0], cache
+        return logits[0], self._checked(cache)
 
     # -- chunked admission --------------------------------------------------
     def chunk_tokens(self) -> int:
@@ -342,9 +402,8 @@ class Engine:
     def chunk_insert(self, cache, slot: int, scratch: dict):
         """Finish a chunked admission: compress the prompt and write row
         ``slot``."""
-        return self.api.prefill_chunk_insert(self.cfg, self.pack_cfg,
-                                             self.ecfg.capacity, cache, slot,
-                                             scratch)
+        return self._checked(self.api.prefill_chunk_insert(
+            self.cfg, self.pack_cfg, self.ecfg.capacity, cache, slot, scratch))
 
     def chunk_final(self, cache, slot: int, scratch: dict, tokens, n_ctx: int):
         """The last chunk and the row insert. Returns (last-token logits
@@ -367,7 +426,7 @@ class Engine:
             self.params, self.cfg, self.pack_cfg, self.ecfg.capacity, cache,
             slot, {"tokens": self._tokens(tokens)[None]}, self._page_ids(pages),
             *(perms or (None, None)), n_prefix=len(pages) * self.ecfg.page_size)
-        return logits[0], cache
+        return logits[0], self._checked(cache)
 
     def prefix_chunk_bounds(self, prompt_len: int, n_matched_pages: int):
         """Segment bounds of an interleaved prefix-cache admission."""
@@ -391,38 +450,47 @@ class Engine:
     def prefix_chunk_finish(self, cache, slot: int, mini, pages, prompt_len: int):
         """Write the finished mini-cache into row ``slot``: matched pages by
         reference, the rest into fresh pages."""
-        return self.api.prefix_chunk_insert(
+        return self._checked(self.api.prefix_chunk_insert(
             self.pack_cfg, cache, slot, mini, self._page_ids(pages),
-            n_prefix=len(pages) * self.ecfg.page_size, prompt_len=prompt_len)
+            n_prefix=len(pages) * self.ecfg.page_size, prompt_len=prompt_len))
+
+    def _per_lane(self, cache, op, ids):
+        """``op(layers, ids)`` in every lane, ``ids`` on the lane's device."""
+        ids = self._page_ids(ids)
+        for _, layers in lane_lists(cache):
+            op(layers, ids.to(layers[0].n_comp.device))
+        return self._checked(cache)
 
     def index_acquire(self, cache, ids):
         """Pin pages for the prefix index (+1 reference each)."""
-        return acquire_pages(cache, self._page_ids(ids))
+        return self._per_lane(cache, acquire_pages, ids)
 
     def index_release(self, cache, ids):
         """Unpin evicted index pages (-1 reference; freed at zero)."""
-        return release_pages(cache, self._page_ids(ids))
+        return self._per_lane(cache, release_pages, ids)
 
     def free_slot(self, cache, slot: int):
-        return self.api.reset_slot(cache, slot)
+        return self._checked(self.api.reset_slot(cache, slot))
 
     def evacuate(self, cache, slot: int, n_pages: int, n_shared: int = 0):
         """Swap row ``slot`` out: (cache with the row freed, per-layer
         dense B=1 minis holding its owned bytes, on the device).
         ``n_pages``: the row's live pages (host-mirrored); ``n_shared``:
         its shared prefix pages, released by reference, not copied."""
-        return self.api.evacuate_slot(cache, slot, n_pages, n_shared)
+        cache, mini = self.api.evacuate_slot(cache, slot, n_pages, n_shared)
+        return self._checked(cache), mini
 
     def restore(self, cache, slot: int, mini, shared_phys=(), n_pages: int = 0,
                 n_shared: int = 0):
         """Stream evacuated minis (host or device) back into ``slot``; no
         forward pass."""
-        return self.api.restore_slot(cache, slot, to_device(mini, self.device),
-                                     self._page_ids(shared_phys), n_pages, n_shared)
+        return self._checked(self.api.restore_slot(
+            cache, slot, to_device(mini, self.device), self._page_ids(shared_phys),
+            n_pages, n_shared))
 
     def mask_free(self, cache, active):
-        return self.api.mask_free(cache, torch.as_tensor(
-            np.asarray(active, bool), device=self.device))
+        return self._checked(self.api.mask_free(cache, torch.as_tensor(
+            np.asarray(active, bool), device=self.device)))
 
     def generate(self, batch: dict, max_new: int, eos_id: int | None = None):
         """Greedy wave decode over the full capacity. Returns (tokens np

@@ -118,18 +118,27 @@ def tree_flatten(tree) -> tuple[list, TreeDef]:
     """(leaves in a fixed order, structure). Leaves are tensors, arrays and
     the scalars of lists, tuples and dicts; None holds no leaf; dict keys
     go in sorted order."""
+    leaves, treedef = tree_flatten_with_path(tree)
+    return [x for _, x in leaves], treedef
+
+
+def tree_flatten_with_path(tree) -> tuple[list, TreeDef]:
+    """``tree_flatten`` with each leaf's path: ([(path, leaf)], structure),
+    a path being the tuple of field names, sequence indices (as strings)
+    and dict keys from the root to the leaf."""
     import dataclasses
 
     leaves: list = []
 
-    def walk(x):
+    def walk(x, path):
         if x is None:
             return ("None",)
         if isinstance(x, (list, tuple)):
-            return ("list" if isinstance(x, list) else "tuple", [walk(v) for v in x])
+            return ("list" if isinstance(x, list) else "tuple",
+                    [walk(v, path + (str(i),)) for i, v in enumerate(x)])
         if isinstance(x, dict):
             keys = sorted(x)
-            return ("dict", keys, [walk(x[k]) for k in keys])
+            return ("dict", keys, [walk(x[k], path + (str(k),)) for k in keys])
         if dataclasses.is_dataclass(x) and not isinstance(x, type) \
                 and not x.__dataclass_params__.frozen:
             static, kids = {}, []
@@ -138,12 +147,12 @@ def tree_flatten(tree) -> tuple[list, TreeDef]:
                 if _is_static(v):
                     static[f.name] = v
                 else:
-                    kids.append((f.name, walk(v)))
+                    kids.append((f.name, walk(v, path + (f.name,))))
             return ("dataclass", type(x), static, kids)
-        leaves.append(x)
+        leaves.append((path, x))
         return ("*",)
 
-    return leaves, TreeDef(walk(tree))
+    return leaves, TreeDef(walk(tree, ()))
 
 
 def tree_unbind(tree) -> list:

@@ -1476,3 +1476,131 @@ def test_async_checkpointer_while_next_step_updates(cuda, tmp_path):
         assert torch.equal(w, g)
         moved |= not torch.equal(w, now)
     assert moved
+
+
+# -- the serving mesh: a lane's launches over its head block ---------------
+
+LANE_SHAPES = [  # (H_kv, G, head blocks): llama2-7b's lanes, minitron-4b's
+    (32, 1, (16, 8)),
+    (8, 3, (2,)),
+]
+
+
+def _lane_cache(cuda, h_kv, G, seed):
+    """llama2-7b-like ragged rows (one empty) with a live residual buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    spec = tt.TierSpec((2, 4, 8), (32, 64, 32), 8)
+    cache = _random_cache(gen, 4, h_kv, 128, 1024, spec, (1024, 0, 320, 704), cuda)
+    for buf in (cache.resid_k, cache.resid_v):
+        buf.copy_(torch.randn(buf.shape, generator=gen, device=cuda).to(buf.dtype))
+    cache.n_resid.copy_(torch.tensor([3, 64, 0, 127], dtype=torch.int32))
+    q = torch.randn((4, h_kv * G, 128), generator=gen, device=cuda)
+    return gen, cache, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h_kv,G,blocks", LANE_SHAPES)
+def test_k2_k5_head_block_equals_full_launch(cuda, h_kv, G, blocks):
+    """K2 and K5 launched over a lane's head block (its own B x H_kv
+    partials, spans and arrival counters) give that block of the full
+    launch bitwise, at pages 64 and 256 for K5."""
+    from repro_torch.kernels.sharded import Mesh, split_layer
+
+    gen, cache, q = _lane_cache(cuda, h_kv, G, seed=h_kv * 10 + G)
+    sm = 128 ** -0.5
+    full = fused_packed_attention(q, cache.k, cache.v, cache.n_comp, sm)
+    pools = {page: _to_pool(cache, page, gen) for page in (64, 256)}
+    full_p = {page: fused_packed_attention_paged(
+        q, p.k, p.v, p.pages.page_table, p.n_comp, 1024, sm, page_size=page)
+        for page, p in pools.items()}
+    for b in blocks:
+        mesh = Mesh(1, h_kv // b, (cuda,) * (h_kv // b))
+        for lane in mesh.lanes:
+            part = split_layer(cache, lane, mesh)
+            got = fused_packed_attention(lane.split(q, 1), part.k, part.v,
+                                         part.n_comp, sm)
+            torch.cuda.synchronize()
+            for g, f in zip(got, full):
+                assert torch.equal(g, lane.split(f, 1)), (b, lane.kv)
+            for page, pool in pools.items():
+                part = split_layer(pool, lane, mesh)
+                got = fused_packed_attention_paged(
+                    lane.split(q, 1), part.k, part.v, part.pages.page_table,
+                    part.n_comp, 1024, sm, page_size=page)
+                torch.cuda.synchronize()
+                for g, f in zip(got, full_p[page]):
+                    assert torch.equal(g, lane.split(f, 1)), (b, lane.kv, page)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h_kv,G,blocks", LANE_SHAPES)
+def test_mesh_attention_equals_full_heads(cuda, h_kv, G, blocks):
+    """A mesh layer's decode attention (each lane's K2 / K5 over its head
+    block with its dp rows masked, the residual buffer's partials and the
+    log-sum-exp merge at full heads over the gathered residual) equals the
+    single-device attention bitwise, for a decode step and a verify window
+    of 3. (Run per lane, the residual partials' einsums and sums differ
+    from the full-head ones on the card: PyTorch picks their launch layout
+    by shape.)"""
+    from repro_torch.kernels.sharded import Mesh, lane_lists, split_cache
+    from repro_torch.models.transformer import _layer_attention
+
+    gen, cache, q = _lane_cache(cuda, h_kv, G, seed=h_kv * 10 + G + 1)
+    q = torch.randn((4, h_kv * G, 3, 128), generator=gen, device=cuda)
+    sm = 128 ** -0.5
+    layers = {"dense": cache, "paged": _to_pool(cache, 64, gen)}
+    layers["paged"].resid_k.copy_(cache.resid_k)
+    layers["paged"].resid_v.copy_(cache.resid_v)
+    layers["paged"].n_resid.copy_(cache.n_resid)
+    keep = lambda layer, k, v: layer  # the attention alone: no append
+    kv = torch.zeros((4, h_kv, 3, 128), device=cuda)
+    for kind, layer in layers.items():
+        for w in (1, 3):
+            want = _layer_attention([layer], [None], 0, q[:, :, :w], kv, kv,
+                                    keep, sm, "fused", 1024)
+            for b in blocks:
+                for n_dp in (1, 2):
+                    n = n_dp * h_kv // b
+                    mc = split_cache([layer], Mesh(n_dp, h_kv // b, (cuda,) * n))
+                    owned = [lane.owned_rows(4) for lane, _ in lane_lists(mc)]
+                    got = _layer_attention(mc, owned, 0, q[:, :, :w], kv, kv,
+                                           keep, sm, "fused", 1024)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (kind, w, b, n_dp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged", "spec"])
+def test_mesh_serving_equals_single_on_cuda(cuda, mode):
+    """The llama2-7b smoke model served on ("cuda:0",) * n at meshes (1, 2)
+    and (2, 2): every token bitwise equal to the (1, 1) engine's on the
+    card, K2 (dense) or K5 (paged) launched once a lane a layer a step,
+    and every lane's ledger lane (0, 0)'s (debug_invariants)."""
+    from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
+
+    cfg, _, params = _smoke_model(cuda)
+    paged = mode != "dense"
+    r = np.random.default_rng(7)
+    prompts = [r.integers(0, cfg.vocab, n) for n in (198, 100, 228)]
+
+    def serve(mesh):
+        n = mesh[0] * mesh[1]
+        eng = Engine(cfg, params, tc.PackKVConfig(), EngineConfig(
+            capacity=512, max_batch=2, calib_tokens=128, decode_chunk=4,
+            bucket_unit=64, paged=paged, page_size=128, spec_decode=mode == "spec",
+            spec_k=3, debug_invariants=True, device=str(cuda), mesh_shape=mesh,
+            mesh_devices=(str(cuda),) * n))
+        srv = SlotServer(eng)
+        for i, (p, m) in enumerate(zip(prompts, (10, 8, 12))):
+            srv.submit(Request(rid=i, tokens=p, max_new=m))
+        fused_packed_attention.launches = fused_packed_attention_paged.launches = 0
+        srv.run()
+        launches = fused_packed_attention_paged.launches if paged else \
+            fused_packed_attention.launches
+        return [srv.done[i].output.tolist() for i in sorted(srv.done)], launches
+
+    want, base = serve((1, 1))
+    for mesh in ((1, 2), (2, 2)):
+        got, launches = serve(mesh)
+        assert got == want, mesh
+        assert launches == base * mesh[0] * mesh[1], (mesh, launches, base)
