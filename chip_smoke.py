@@ -9,9 +9,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      versions; then every CUDA kernel is built from csrc/ with nvcc.
   1b. storage (after the llama2-7b engine is built) - the paper's storage
      tier, which runs no kernel of its own: every 64-token block of the
-     model's K/V (one 1024-token random prompt prefilled with policy none
-     on dense storage, 32 layers x 32 kv heads, head dim 128: 16,384
-     blocks) and of synthetic_kv at the same shape (the llama2-7b-like
+     model's K/V (one 512-token random prompt prefilled with policy none
+     on dense storage, 32 layers x 32 kv heads, head dim 128: 8,192
+     blocks; 1024 tokens before PR 26) and of synthetic_kv at the same shape (the llama2-7b-like
      profile, made by two worker processes meanwhile) quantized token-wise
      (K rel 0.1, V rel 0.2), repacked (none, median_v, greedy_joint) and
      bit-packed in pack 8 by CompressedKVStream.extend on the card. Checks:
@@ -148,7 +148,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      Reports each swapped row's bytes, the swap store's peak, evacuate /
      host copy / restore ms (CUDA events), decode tok/s beside the
      control's.
-  11. serve_session - two conversations (prompts 700 and 1000, 32 new
+  11. serve_session - two conversations (prompts 700 and 1000, 16 new
      tokens a turn, a 16-token extension a returning turn; the second takes
      three turns), dense and paged, the host tier sized at 1.5x the first
      parked row so a park spills to disk and loads back: every turn
@@ -168,8 +168,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      (2, 2): K5 at H_kv = 16 with the dp row masks; (c) minitron-4b
      (32 layers, 24 heads over 8 kv heads, hd 128) dense, monolithic,
      mesh (1, 4): K2 at H_kv = 2, G = 3, freed before serve_prefix. The 6
-     prompts of serve, 32 new tokens, 4 slots: every request bitwise equal
-     to its (1, 1) control (a, b: the serve / serve_paged phases' first 32
+     prompts of serve, 16 new tokens, 4 slots: every request bitwise equal
+     to its (1, 1) control (a, b: the serve / serve_paged phases' first 16
      tokens; c: a (1, 1) run here), K2 / K5 launched once a lane, layer
      and decode step and the other kernel never, every lane's page ledger
      and counters equal to lane (0, 0)'s. Reports decode tok/s, the wall
@@ -180,7 +180,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      full width and depth (24 layers, d_model 2048, 16 heads over 16 kv
      heads, 60 routed experts top-4 and 4 shared, Fe 1408, vocab 151936;
      28.6 GB of bf16), policy packkv, capacity 2048, 4 slots: 6 requests
-     (prompts 320/700/1000/450/260/900, 32 new tokens) in four runs: (a)
+     (prompts 320/700/1000/450/260/900, 16 new tokens) in four runs: (a)
      dense, chunked admission: K2 == n_layers x decode steps, K5 == 0; (b)
      paged (pages of 256), chunked: every token bitwise equal to (a), K5
      == n_layers x decode steps, K2 == 0; (c) dense, spec_k 4, the replay
@@ -195,7 +195,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      call site, compressed bytes per token (the paper's count and the
      device's), peak memory. Then, qwen2-moe freed, moonshot-v1-16b-a3b
      at full width and depth (48 layers, 64 experts top-6 and 2 shared,
-     vocab 163840; 57.8 GB), dense, monolithic, 4 requests of 32 new
+     vocab 163840; 57.8 GB), dense, monolithic, 4 requests of 16 new
      tokens: K2 == n_layers x decode steps, outputs in the vocabulary.
   14. serve_vlm - internvl2-2b at full width and depth (24 layers, 8 kv
      heads, G 2): Engine.generate at B=2 over 256 random patch embeddings
@@ -208,7 +208,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   16. serve_rwkv - rwkv6-1.6b at full width and depth (24 layers, d_model
      2048, 32 WKV heads of 64, vocab 65,536): SlotServer, 4 slots, chunked
      admission (pages of 256), 6 requests (prompts 320/700/1000/450/260/
-     900, four with a sub-chunk WKV tail), 32 new tokens each: every
+     900, four with a sub-chunk WKV tail), 16 new tokens each: every
      request bitwise equal to its solo control at the server's height
      (``solo``), the same traffic through monolithic admission bitwise
      equal, and one 1000-token admission's logits and state row equal
@@ -218,7 +218,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      4096, vocab 256,000), policy packkv calibrated over the window, 4
      slots, chunked admission: 5 requests (prompts 2048/700/450/900/260,
      200 new tokens for the first, whose window rings flush twice over
-     their oldest blocks, 32 for the others): K2 once an attention layer
+     their oldest blocks, 16 for the others): K2 once an attention layer
      and decode step at G = 16, D = 256; each request bitwise equal to its
      solo control; the 2048-token admission chunked == monolithic
      bitwise. Then K2 and K5 (pages 64 and 256) at that decode shape under
@@ -233,12 +233,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      losses, grad norms, step ms, tokens a second, 6 N T / step time as a
      share of the bf16 peak and the peak memory. No kernel of csrc/.
   19. train_launch - smollm-135m at full width through
-     ``launch.train.main``: 40 steps of 8 x 256 tokens at grad_accum 2
-     under WSD, checkpoints every 20 steps into a temporary directory;
-     the same run preempted after 20 steps and resumed: the two step-40
+     ``launch.train.main``: 10 steps of 8 x 256 tokens at grad_accum 2
+     under WSD (40 before PR 26), checkpoints every 5 steps into a
+     temporary directory; the same run preempted after 5 steps and
+     resumed: the two step-10
      checkpoints bitwise equal leaf for leaf (parameters, moments, step);
      then one step at grad_accum 1 against one at 2 from the same
      parameters: the loss within 1e-3, every parameter within 5e-3.
+  20. train_dp - smollm-135m at full width and depth trained data-parallel
+     by two spawned ranks that share cuda:0 over gloo (NCCL takes one rank
+     a card), ZeRO-1 moments: two steps of 8 x 256 tokens, each rank on
+     its 4 rows, gradients gathered and added in rank order. Checks: every
+     rank's losses, grad norms, step, parameters and (gathered) moments
+     bitwise equal to this process's grad_accum 2 run from the same seed
+     (sha256 of each leaf's bytes). Reports each rank's step ms, peak
+     memory, and the exchange's ms (one step's gradients summed in rank
+     order, timed alone). No kernel of csrc/.
 
 Each phase's seconds follow it on a line of their own ("phase_seconds"),
 and the total before the card's line. Then the kernels line (K2's
@@ -1333,11 +1343,11 @@ def chain(eng, prompt, turns):
 
 
 SESSION_PROMPTS = (700, 1000)
-SESSION_NEW, SESSION_EXT = 32, 16
+SESSION_NEW, SESSION_EXT = 16, 16  # 32 new a turn before PR 26
 
 
 def phase_serve_session(engine, cfg) -> dict:
-    """Two conversations (prompts 700 and 1000, 32 new tokens a turn; each
+    """Two conversations (prompts 700 and 1000, 16 new tokens a turn; each
     turn returns with a 16-token extension; the 1000-token one takes a
     third turn), dense and paged. The host tier is sized at 1.5x the
     first parked row, so the second park spills the first to disk and
@@ -1516,7 +1526,7 @@ def phase_serve_faults(engine, cfg) -> dict:
 
 
 # serve_mesh: the (dp, kv) serving mesh on one card, lanes on cuda:0
-MESH_NEW = 32  # new tokens a request: the first 32 of the plain phases' 160
+MESH_NEW = 16  # new tokens a request: the first 16 of the plain phases' 160 (32 before PR 26)
 MESH_STEADY_LAUNCHES = 1  # timed 8-step launches a turn of steady_step_ms
 
 
@@ -1881,9 +1891,9 @@ def phase_serve_prefix(device) -> dict:
 
 # serve_moe / serve_vlm / encode: the MoE family, the VLM and the encoder
 MOE_PROMPTS = (320, 700, 1000, 450, 260, 900)
-MOE_NEW = 32
+MOE_NEW = 16  # 32 before PR 26
 MOONSHOT_PROMPTS = (320, 700, 450, 900)
-MOONSHOT_NEW = 32
+MOONSHOT_NEW = 16  # 32 before PR 26
 VLM_TOKENS, VLM_NEW = 512, 32
 ENCODE_FRAMES = 1024
 
@@ -2024,7 +2034,7 @@ def phase_serve_moe(device) -> dict:
     agreement with (a) reported (C follows the chunk's length in one and
     the prompt's in the other). The routing on the card equals the CPU's.
     Then moonshot-v1-16b-a3b at full width and depth, dense, 4 requests of
-    32 new tokens. K2 (K5) launches n_layers x decode steps."""
+    16 new tokens. K2 (K5) launches n_layers x decode steps."""
     import dataclasses
 
     import numpy as np
@@ -2222,9 +2232,9 @@ def phase_encode(device) -> None:
 
 # serve_rwkv / serve_rglru: the recurrent families at full width and depth
 RWKV_PROMPTS = (320, 700, 1000, 450, 260, 900)  # 700, 1000, 450, 260: a sequential tail
-RWKV_NEW = 32
+RWKV_NEW = 16  # 32 before PR 26
 RGLRU_PROMPTS = (2048, 700, 450, 900, 260)
-RGLRU_NEW = (200, 32, 32, 32, 32)  # the 2048-token row flushes at steps 129 and 193
+RGLRU_NEW = (200, 16, 16, 16, 16)  # the 2048-token row flushes at steps 129 and 193
 
 
 def solo(eng, prompt, max_new: int) -> list:
@@ -2555,9 +2565,10 @@ def phase_train(device, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-LAUNCH_ARGS = ["--arch", "smollm-135m", "--steps", "40", "--batch", "8", "--seq", "256",
-               "--grad-accum", "2", "--schedule", "wsd", "--ckpt-every", "20",
-               "--seed", "0"]
+LAUNCH_STEPS = 10  # 40 before PR 26: cut to make room for train_dp
+LAUNCH_ARGS = ["--arch", "smollm-135m", "--steps", str(LAUNCH_STEPS), "--batch", "8",
+               "--seq", "256", "--grad-accum", "2", "--schedule", "wsd",
+               "--ckpt-every", str(LAUNCH_STEPS // 2), "--seed", "0"]
 
 
 def npz_diff(a: str, b: str) -> dict:
@@ -2584,10 +2595,10 @@ def npz_diff(a: str, b: str) -> dict:
 def phase_train_launch(device, card: str) -> None:
     """smollm-135m at full width (30 layers, d_model 576, 163 M parameters:
     a 1.6 GB checkpoint with the moments) through ``launch.train.main``:
-    batch 8 x 256 tokens, grad_accum 2, WSD, lr 3e-4. Run A: 40 steps,
-    a checkpoint every 20; run B: A's step-20 checkpoint alone in a fresh
-    directory (what a run preempted after step 20 leaves), then --resume
-    to 40. A's and B's step-40 checkpoints must be bitwise equal leaf for
+    batch 8 x 256 tokens, grad_accum 2, WSD, lr 3e-4. Run A: 10 steps,
+    a checkpoint every 5; run B: A's step-5 checkpoint alone in a fresh
+    directory (what a run preempted after step 5 leaves), then --resume
+    to 10. A's and B's step-10 checkpoints must be bitwise equal leaf for
     leaf (parameters, moments, step). Then one step at grad_accum 1 against
     one at 2 from the same parameters (lr 1e-3, warmup 1): the loss within
     1e-3 and every parameter within 5e-3, the reference's own bounds; and,
@@ -2620,12 +2631,14 @@ def phase_train_launch(device, card: str) -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         out_a, s_a = run(LAUNCH_ARGS + ["--ckpt-dir", a])
-        shutil.copytree(os.path.join(a, "step_00000020"), os.path.join(b, "step_00000020"))
+        mid = f"step_{LAUNCH_STEPS // 2:08d}"
+        shutil.copytree(os.path.join(a, mid), os.path.join(b, mid))
         out_b2, s_b2 = run(LAUNCH_ARGS + ["--ckpt-dir", b, "--resume"])
         for line in (out_a + out_b2).splitlines():
             print(f"launcher: {line}", flush=True)
-        check("resumed from step 20" in out_b2, "run B did not resume from step 20")
-        ckpt = lambda d: os.path.join(d, "step_00000040", "arrays.npz")
+        check(f"resumed from step {LAUNCH_STEPS // 2}" in out_b2,
+              f"run B did not resume from step {LAUNCH_STEPS // 2}")
+        ckpt = lambda d: os.path.join(d, f"step_{LAUNCH_STEPS:08d}", "arrays.npz")
         ckpt_bytes = os.path.getsize(ckpt(a))
         diff = npz_diff(ckpt(a), ckpt(b))
     if diff:
@@ -2664,6 +2677,173 @@ def phase_train_launch(device, card: str) -> None:
           "nvidia_smi": card})
     del p1, p2, o1, o2, batch
     torch.cuda.empty_cache()
+
+
+DP_RANKS, DP_STEPS, DP_BATCH, DP_SEQ, DP_SEED = 2, 2, 8, 256, 42
+
+
+def leaf_digests(tree) -> dict:
+    """{path: sha256 of the leaf's bytes} (bf16 through its int16 bits)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.utils import tree_flatten_with_path
+
+    out = {}
+    for path, x in tree_flatten_with_path(tree)[0]:
+        x = x.detach().contiguous()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        out[".".join(path)] = hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def dp_setup(device, smoke: bool):
+    """smollm-135m's model (its smoke config to rehearse on the CPU),
+    optimizer config and batches of the train_dp phase (the ranks and the
+    control make the same ones)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ShardedTokenStream
+    from repro_torch.models import get_model
+    from repro_torch.training import OptConfig
+
+    cfg = get_arch("smollm-135m", smoke=smoke)
+    stream = ShardedTokenStream(vocab=cfg.vocab, batch_per_host=DP_BATCH, seq=DP_SEQ,
+                                seed=DP_SEED)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in stream.next_batch().items()}
+               for _ in range(DP_STEPS)]
+    return cfg, get_model(cfg), OptConfig(lr=1e-3, warmup_steps=1, total_steps=10), batches
+
+
+def cuda_sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_dp_rank(rank: int, world: int, d: str, dev: str, smoke: bool) -> None:
+    """One rank of the train_dp phase (spawned: this module is its main)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.exchange import sum_in_rank_order
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import init_training, make_train_step
+    from repro_torch.training.train import (
+        _accumulate,
+        _row_block,
+        gather_opt_state,
+        shard_opt_state,
+    )
+    from repro_torch.utils import tree_flatten
+
+    device = torch.device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(d, 'init')}",
+                            world_size=world, rank=rank)
+    try:
+        cfg, api, oc, batches = dp_setup(device, smoke)
+        mesh = make_debug_mesh(data=world, device=device)
+        params, opt = init_training(api, cfg, torch.Generator(device=device).manual_seed(DP_SEED))
+        specs = sharding.opt_state_specs(params, mesh)
+        opt = shard_opt_state(opt, specs, mesh)
+        step_fn = make_train_step(api, cfg, oc, 1, accum_pspecs=specs)
+        cuda = device.type == "cuda"
+        cuda_sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        metrics, ms = [], []
+        sharding.set_active_mesh(mesh)
+        try:
+            for b in batches:
+                cuda_sync(device)
+                t0 = time.perf_counter()
+                params, opt, m = step_fn(params, opt, b)
+                metrics.append([float(m["loss"]), float(m["grad_norm"]), int(m["step"])])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() if cuda else None
+            # the exchange alone: this rank's gradients of its rows, summed
+            # in rank order as the step sums them
+            leaves, treedef = tree_flatten(params)
+            _, grads = _accumulate(api, cfg, leaves, treedef, _row_block(batches[0], mesh), 1)
+            dist.barrier()
+            cuda_sync(device)
+            t0 = time.perf_counter()
+            for g in grads:
+                sum_in_rank_order(g, mesh.dp_group, world)
+            cuda_sync(device)
+            exchange_ms = (time.perf_counter() - t0) * 1e3
+            grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+            del grads
+        finally:
+            sharding.set_active_mesh(None)
+        full = gather_opt_state(opt, specs, params, mesh)
+        local_moment_bytes = sum(x.numel() * 4 for x in tree_flatten(opt.mu)[0]) * 2
+        torch.save({"metrics": metrics, "ms": ms, "peak": peak, "exchange_ms": exchange_ms,
+                    "grad_bytes": grad_bytes, "moment_bytes": local_moment_bytes,
+                    "params": leaf_digests(params), "mu": leaf_digests(full.mu),
+                    "nu": leaf_digests(full.nu)}, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_dp(device, card: str, smoke: bool = False) -> None:
+    """Two ranks on this one card, against this process's grad_accum 2
+    run (see the module docstring, phase 20)."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.training import init_training, make_train_step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as d:
+        t0 = time.perf_counter()
+        mp.spawn(train_dp_rank, args=(DP_RANKS, d, str(device), smoke), nprocs=DP_RANKS,
+                 join=True)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{d}/rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    cfg, api, oc, batches = dp_setup(device, smoke)
+    params, opt = init_training(api, cfg, torch.Generator(device=device).manual_seed(DP_SEED))
+    step_fn = make_train_step(api, cfg, oc, grad_accum=DP_RANKS)
+    metrics, ms = [], []
+    for b in batches:
+        cuda_sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        metrics.append([float(m["loss"]), float(m["grad_norm"]), int(m["step"])])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    want = {"params": leaf_digests(params), "mu": leaf_digests(opt.mu),
+            "nu": leaf_digests(opt.nu)}
+    for r, res in enumerate(ranks):
+        check(res["metrics"] == metrics,
+              f"train_dp rank {r}: metrics {res['metrics']} != grad_accum 2's {metrics}")
+        for part in ("params", "mu", "nu"):
+            bad = [k for k, v in want[part].items() if res[part].get(k) != v]
+            check(not bad and res[part].keys() == want[part].keys(),
+                  f"train_dp rank {r}: {part} differ from grad_accum 2's: {bad[:8]}")
+    emit({"phase": "train_dp", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(), "ranks": DP_RANKS,
+          "device": f"{device} shared", "backend": "gloo", "zero1": True,
+          "batch": DP_BATCH, "seq": DP_SEQ, "steps": DP_STEPS,
+          "metrics_loss_gnorm_step": metrics, "bitwise_equal_grad_accum_2": True,
+          "rank_step_ms": [res["ms"] for res in ranks],
+          "rank_peak_memory_bytes": [res["peak"] for res in ranks],
+          "exchange_ms": [res["exchange_ms"] for res in ranks],
+          "exchange_grad_bytes": ranks[0]["grad_bytes"],
+          "rank_moment_bytes": [res["moment_bytes"] for res in ranks],
+          "control_step_ms": ms, "ranks_wall_s": ranks_s, "nvidia_smi": card})
+    del params, opt, batches
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def tier_runs(tc_, flat, sliced: bool):
@@ -2984,7 +3164,7 @@ def phase_matvec(engine, device) -> dict:
 # storage: the paper's storage tier (quantize -> repack -> bit-pack, the
 # block stream) over llama2-7b's full-width K/V and synthetic K/V of the
 # same shape
-STORAGE_TOKENS = 1024  # one prompt: 16 blocks of 64 a (layer, kv head)
+STORAGE_TOKENS = 512  # one prompt: 8 blocks of 64 a (layer, kv head); 1024 before PR 26
 STORAGE_MODES = ("none", "median_v", "greedy_joint")
 STORAGE_SAMPLE_BLOCKS = 2  # blocks 0-1 of every head of the first and last layer
 STORAGE_SEED = 21  # input A's prompt; input B's K and V streams
@@ -3310,6 +3490,7 @@ def main() -> int:
     rglru = timed(phase_serve_rglru, device)
     timed(phase_train, device, card)
     timed(phase_train_launch, device, card)
+    timed(phase_train_dp, device, card)
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     row = lambda name, source, replaces, k, launches: {

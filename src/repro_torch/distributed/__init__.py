@@ -1,5 +1,7 @@
-"""Fault handling of the serving and training loops, and gradient
-compression (the single-device half of ``repro/distributed``)."""
+"""Fault handling of the serving and training loops, gradient
+compression, the sharding rules (``sharding``) and the rank-order exchange
+of data-parallel training (``exchange``): the torch port of
+``repro/distributed``."""
 from .fault import (
     CheckpointPolicy,
     ElasticPlan,

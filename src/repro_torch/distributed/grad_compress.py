@@ -1,14 +1,17 @@
 """Gradient compression for data-parallel all-reduce: the paper's own
 machinery (token-wise quantization) applied to gradients, with
-error-feedback residuals; the torch port of the single-device half of
+error-feedback residuals; the torch port of
 ``repro/distributed/grad_compress.py``.
 
 Each row of ``row`` values of a flattened gradient gets its own (scale,
 zero); the integers are range-reduced exactly like the KV pipeline's.
 ``roundtrip_grads`` models the wire codec (compress then decompress, per
-replica); ``wire_bits`` is the analytic on-wire size. The compressed
-all-gather across replicas (the reference's ``compressed_psum_mean``)
-needs a device mesh and comes with the multi-device port.
+replica); ``wire_bits`` is the analytic on-wire size.
+``compressed_psum_mean`` is the compressed exchange itself over a
+``torch.distributed`` group: an all-gather of the quantized payload and
+its per-row metadata (the bytes on the wire are the compressed bytes),
+then a local dequantize and mean. No training path calls it, as in the
+reference: the train step's exchange is uncompressed.
 """
 from __future__ import annotations
 
@@ -98,3 +101,32 @@ def wire_bits(params, cfg: GradCompressConfig) -> int:
 def compression_ratio(params, cfg: GradCompressConfig) -> float:
     raw = sum(p.numel() for p in tree_flatten(params)[0]) * 32
     return raw / wire_bits(params, cfg)
+
+
+def compressed_psum_mean(grads, cfg: GradCompressConfig, group=None):
+    """Each replica quantizes its local leaves; the group all-gathers only
+    the integers and the per-row (scale, zero); every replica then
+    dequantizes each replica's rows and takes their mean, adding in rank
+    order from zero and dividing once. ``group``: a process group
+    (``torch.distributed.group.WORLD`` for every rank); None is the
+    one-replica case, with nothing exchanged. Error feedback is the
+    caller's (``roundtrip_grads``' residuals), as in the reference."""
+    from .exchange import all_gather
+
+    if group is None:
+        n, gather = 1, lambda x: [x]
+    else:
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        gather = lambda x: all_gather(x, group, n)
+
+    def leaf(g):
+        q, s, z, _ = compress_leaf(g, cfg, None)
+        acc = torch.zeros(q.shape, dtype=torch.float32, device=g.device)
+        for qi, si, zi in zip(gather(q), gather(s), gather(z)):
+            acc.add_(_dequant_rows(qi, si, zi))
+        mean = div(acc, n).reshape(-1)
+        return mean[:g.numel()].reshape(g.shape).to(g.dtype)
+
+    return tree_map(leaf, grads)

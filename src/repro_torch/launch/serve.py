@@ -27,6 +27,7 @@ plain decode (random prompts give few drafts and little acceptance).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 
@@ -97,7 +98,11 @@ def main(argv=None) -> int:
                     help="serving mesh 'dp,kv': pool payloads split by KV head "
                     "over kv lanes, attention rows over dp (1,1 = one device; "
                     "tokens are bitwise the same either way). --device cpu "
-                    "puts every lane on the CPU; cuda takes one card a lane")
+                    "puts every lane on the CPU; cuda takes one card a lane "
+                    "unless --mesh-devices names them")
+    ap.add_argument("--mesh-devices", default=None, metavar="DEV,...",
+                    help="the lanes' devices, dp-major, one a lane; a device "
+                    "may repeat (e.g. cuda:0,cuda:0 runs --mesh 1,2 on one card)")
     args = ap.parse_args(argv)
 
     try:
@@ -105,6 +110,13 @@ def main(argv=None) -> int:
         assert len(mesh_shape) == 2
     except (ValueError, AssertionError):
         raise SystemExit(f"--mesh takes 'dp,kv' (e.g. 1,2), got {args.mesh!r}")
+    mesh_devices = None
+    if args.mesh_devices is not None:
+        mesh_devices = tuple(d.strip() for d in args.mesh_devices.split(","))
+        n_lanes = mesh_shape[0] * mesh_shape[1]
+        if len(mesh_devices) != n_lanes:
+            raise SystemExit(f"--mesh-devices names {len(mesh_devices)} devices; "
+                             f"--mesh {args.mesh} has {n_lanes} lanes")
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain "
@@ -133,7 +145,7 @@ def main(argv=None) -> int:
                         session_cache_mb=args.session_cache_mb,
                         session_ttl_s=args.session_ttl_s,
                         session_disk_dir=args.session_disk_dir,
-                        mesh_shape=mesh_shape)
+                        mesh_shape=mesh_shape, mesh_devices=mesh_devices)
     t0 = time.time()
     engine = Engine(cfg, params, get_policy(args.policy), ecfg)
     print(f"engine built in {time.time() - t0:.1f}s; policy={args.policy}, "
@@ -142,7 +154,8 @@ def main(argv=None) -> int:
         print(f"serving mesh dp={mesh_shape[0]} x kv={mesh_shape[1]} over "
               f"{mesh_shape[0] * mesh_shape[1]} lanes: pool payloads "
               f"sharded by KV head ({cfg.n_kv_heads} -> "
-              f"{cfg.n_kv_heads // mesh_shape[1]}/lane), page ledger replicated")
+              f"{cfg.n_kv_heads // mesh_shape[1]}/lane), page ledger replicated; "
+              f"lanes on {[str(d) for d in engine.mesh.devices]}")
     ks, vs = engine.pack_cfg.k_spec_static, engine.pack_cfg.v_spec_static
     if ks is not None:
         print(f"calibrated K tiers {ks.widths}x{ks.counts}; "
@@ -177,6 +190,11 @@ def main(argv=None) -> int:
     n_tok = sum(len(r.output) for r in done)
     print(f"{args.requests} requests, {n_tok} tokens in {dt:.1f}s "
           f"({n_tok / dt:.1f} tok/s on {args.device}, prefill included)")
+    digest = hashlib.sha256(b"".join(
+        np.asarray(server.done[rid].output, np.int64).tobytes()
+        for rid in sorted(server.done))).hexdigest()[:16]
+    print(f"outputs sha256 {digest} (every request's tokens in request order: "
+          "equal digests, equal tokens)")
     if args.session_cache:
         # every request returns with a short follow-up on its whole trace
         t0 = time.time()

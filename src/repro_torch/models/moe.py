@@ -1,10 +1,19 @@
 """Mixture-of-Experts MLP (qwen2-moe, moonshot): shared + routed top-k.
 
-The torch port of the single-device path of ``repro/models/moe.py``
-(``_moe_dense``): capacity-bounded scatter/gather dispatch (a token's slot
-in its expert from a token-major [T·k, E] cumsum), the experts as one
-batched SwiGLU over the [E, C, D] buffer (``torch.bmm``), the shared
-experts as a plain SwiGLU, and the Switch load-balancing aux loss.
+The torch port of ``repro/models/moe.py``: capacity-bounded
+scatter/gather dispatch (a token's slot in its expert from a token-major
+[T·k, E] cumsum), the experts as one batched SwiGLU over the [E, C, D]
+buffer (``torch.bmm``), the shared experts as a plain SwiGLU, and the
+Switch load-balancing aux loss.
+
+``_moe_sharded`` is the reference's ``shard_map`` path with one
+controller, over a global x: each data-parallel block of rows is
+dispatched alone, so C follows the block's token count, and under a
+'model' axis the expert FFN runs as Fe slices whose partial outputs are
+added in model order (the reference's ``psum``). ``moe_apply`` does not
+call it: a data-parallel rank's rows are already its one block, which
+the single-device path dispatches alone, and the 'model' axis waits for
+tensor parallelism (ROADMAP item 16c).
 
 The routing is a function of the tokens the reference feeds the MLP.
 The serving path pads its hidden states with zero rows (a decode step to
@@ -28,7 +37,7 @@ from contextlib import contextmanager
 import torch
 
 from ..configs.base import ArchConfig
-from ..utils import round_up
+from ..utils import div, round_up
 from .layers import dense_init, swiglu
 
 CAPACITY_FACTOR = 1.25
@@ -115,8 +124,14 @@ def _dispatch_compute(x2: torch.Tensor, logits: torch.Tensor, wg, wu, wd,
                       E: int, k: int, capacity_factor: float):
     """Routed-expert output of tokens x2 [T, D] (bf16) given their router
     logits [T, E]: (out [T, D], aux, routing)."""
-    T, D = x2.shape
     r = route(logits, E, k, capacity_factor)
+    return _expert_out(x2, r, wg, wu, wd, E, k), r.aux, r
+
+
+def _expert_out(x2: torch.Tensor, r: Routing, wg, wu, wd, E: int, k: int):
+    """The experts' output [T, D] of tokens x2 under routing ``r``; with
+    Fe slices of the weights, that slice's partial output."""
+    T, D = x2.shape
     C = r.C
     # kept choices write their token into their slot; dropped ones go to a
     # spare row past the buffer (the reference adds them there as zeros)
@@ -130,7 +145,49 @@ def _dispatch_compute(x2: torch.Tensor, logits: torch.Tensor, wg, wu, wd,
     y = torch.bmm(h, wd).reshape(E * C, D)
     valid = r.keep[:, None].to(x2.dtype)
     out = y[r.slot] * valid * r.gate.reshape(-1, 1).to(x2.dtype)
-    return out.reshape(T, k, D).sum(dim=1), r.aux, r
+    return out.reshape(T, k, D).sum(dim=1)
+
+
+def _moe_sharded(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 capacity_factor: float, mesh):
+    """The reference's ``shard_map`` dispatch with one controller, over a
+    global x [B, S, D]: each block of rows of the data-parallel axes (by
+    ``spec_with_fallback``; one block when B does not divide them) is
+    routed alone, with the capacity of its own token count; under a
+    'model' axis that divides Fe the expert FFN runs one Fe slice at a
+    time and the slices' partial outputs are added in model order. The
+    aux loss is the mean of the blocks' in block order. Returns (routed
+    output [B, S, D], aux)."""
+    from ..distributed.sharding import _axis_size, dp_axes, spec_with_fallback
+
+    dp = dp_axes(mesh)
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.moe_topk
+    Fe = p["w_gate"].shape[-1]
+    m = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    slices = m if m > 1 and Fe % m == 0 else 1
+    x_spec = spec_with_fallback(x.shape, [dp, None, None], mesh)
+    n_blk = _axis_size(mesh, dp) if x_spec[0] is not None else 1
+    Bl, f = B // n_blk, Fe // slices
+    x2 = x.reshape(B * S, D)
+    outs, auxes = [], []
+    for b in range(n_blk):
+        xb = x2[b * Bl * S:(b + 1) * Bl * S] if n_blk > 1 else x2
+        r = route(xb.to(torch.float32) @ p["router"], E, k, capacity_factor)
+        out = None
+        for j in range(slices):
+            fs = slice(j * f, (j + 1) * f)
+            part = _expert_out(xb, r, p["w_gate"][..., fs], p["w_up"][..., fs],
+                               p["w_down"][:, fs], E, k)
+            out = part if out is None else out + part
+        outs.append(out.view(Bl, S, D))
+        auxes.append(r.aux)
+    aux = auxes[0]
+    if n_blk > 1:
+        for a in auxes[1:]:
+            aux = aux + a
+        aux = div(aux, n_blk)
+    return torch.cat(outs, 0) if n_blk > 1 else outs[0], aux
 
 
 # -- opt-in routing log (tests and chip_smoke read it; off costs nothing) ----

@@ -104,13 +104,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, state: OptState, params, cfg: OptConfig):
+def adamw_update(grads, state: OptState, params, cfg: OptConfig, gnorm=None):
     """One AdamW step with global-norm clipping, IN PLACE on ``params``
-    and ``state``'s moments; returns (params, state, grad norm)."""
+    and ``state``'s moments; returns (params, state, grad norm).
+    ``gnorm``: the clip's norm when ``grads`` are slices of the gradients
+    (a ZeRO-1 rank's), else the norm of ``grads``."""
     step = state.step + 1
     lr = make_schedule(cfg)(step)
     b1, b2 = cfg.betas
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.minimum(_f32(1.0, gnorm),
                          _f32(cfg.grad_clip, gnorm) / torch.clamp(gnorm, min=1e-9))
     s = step.to(F32)

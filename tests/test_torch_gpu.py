@@ -1604,3 +1604,60 @@ def test_mesh_serving_equals_single_on_cuda(cuda, mode):
         got, launches = serve(mesh)
         assert got == want, mesh
         assert launches == base * mesh[0] * mesh[1], (mesh, launches, base)
+
+
+@pytest.mark.gpu
+def test_data_parallel_two_ranks_on_one_card_bitwise(cuda, tmp_path):
+    """Two ranks share cuda:0 over gloo (NCCL takes one rank a card), with
+    ZeRO-1 moments: a data = 2 step of the llama2-7b and qwen2-moe-a2.7b
+    smoke models equals the single-process grad_accum = 2 step bitwise
+    (losses, grad norms, parameters, moments, step), on every rank."""
+    import torch.multiprocessing as mp
+
+    import torch_dp_helpers as h
+
+    mp.spawn(h.gpu_dp2_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
+    r0, r1 = (torch.load(tmp_path / f"gpu_dp2_rank{r}.pt", weights_only=False)
+              for r in range(2))
+    for name in ("llama2-7b", "qwen2-moe-a2.7b"):
+        ctl = r0[name, "ctl"]
+        assert h.bitwise_diff(r0[name, "dp"], ctl) == [], name
+        assert h.bitwise_diff(r1[name, "dp"], ctl) == [], name
+
+
+@pytest.mark.gpu
+def test_launcher_torchrun_ranks_bitwise(cuda, tmp_path):
+    """``torchrun --nproc-per-node n -m repro_torch.launch.train --device
+    cuda``: with a card a rank (n = every card, two or more) the ranks
+    take cuda:LOCAL_RANK over NCCL; on one card two ranks share cuda:0
+    over gloo. Either way the step-4 checkpoint (smollm-135m smoke, a
+    checkpoint every 2 steps, ZeRO-1 moments gathered whole) equals one
+    process's at --grad-accum n byte for byte, leaf for leaf."""
+    import os
+    import subprocess
+    import sys
+
+    cards = torch.cuda.device_count()
+    n = max(cards, 2)
+    backend = "nccl" if cards >= n else "gloo"
+    args = ["-m", "repro_torch.launch.train", "--arch", "smollm-135m", "--smoke",
+            "--device", "cuda", "--steps", "4", "--batch", str(2 * n), "--seq", "64",
+            "--ckpt-every", "2", "--schedule", "wsd"]
+    # torchrun gives each rank one CPU thread: so does the control (the
+    # host's share of the step then runs alike)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+
+    def run(cmd):
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+        return out.stdout
+
+    said = run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(n)] + args + ["--ckpt-dir", str(tmp_path / "dp")])
+    assert f"{n} ranks on {backend}" in said, said
+    run([sys.executable] + args + ["--grad-accum", str(n), "--ckpt-dir", str(tmp_path / "one")])
+    ck = lambda run: tmp_path / run / "step_00000004" / "arrays.npz"
+    with np.load(ck("dp")) as a, np.load(ck("one")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert [k for k in a.files if a[k].tobytes() != b[k].tobytes()] == []
