@@ -10,15 +10,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1b. storage (after the llama2-7b engine is built) - the paper's storage
      tier, which runs no kernel of its own: every 64-token block of the
      model's K/V (one 512-token random prompt prefilled with policy none
-     on dense storage, 32 layers x 32 kv heads, head dim 128: 8,192
-     blocks; 1024 tokens before PR 26) and of synthetic_kv at the same shape (the llama2-7b-like
+     on dense storage, 16 of its 32 layers (``DEPTH``) x 32 kv
+     heads, head dim 128: 4,096 blocks) and of
+     synthetic_kv at the same shape (the llama2-7b-like
      profile, made by two worker processes meanwhile) quantized token-wise
      (K rel 0.1, V rel 0.2), repacked (none, median_v, greedy_joint) and
      bit-packed in pack 8 by CompressedKVStream.extend on the card. Checks:
      unpack(pack(q)) == q and |x - decode| <= scale / 2 (plus the f32
      rounding of x - lo and the quotient) at every value; the payload bits
-     of a re-encode equal the stream's; blocks 0-1 of every head of layers
-     0 and 31 (128 blocks) bitwise equal to the plain CPU path (append, a
+     of a re-encode equal the stream's; blocks 0-1 of every head of the
+     first and last layer (128 blocks) bitwise equal to the plain CPU path (append, a
      block at a time: perm, scale / zero, widths, minima, words and the
      serialized stream with its directory) for median_v and greedy_joint.
      Reports the K, V and joint ratios beside KIVI's analytic ratio at the
@@ -51,7 +52,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      too. Both kernel phases also run the serving mesh's lane shapes under
      llama2-7b's calibrated spec: H_kv = 16 and 8 (llama2-7b over 2 and 4
      kv lanes) and H_kv = 2, G = 3 (minitron-4b over 4).
-  4. serve - llama2-7b at full width (32 layers, random bf16 weights from a
+  4. serve - llama2-7b at full width (16 of its 32 layers, ``DEPTH``, as
+     every llama2-7b serve phase; random bf16 weights from a
      seeded torch.Generator) through Engine + SlotServer: policy packkv,
      capacity 2048, 4 slots, decode_chunk 8, backend "fused", dense
      storage, monolithic admission; 6 requests of prompt lengths {320,
@@ -116,17 +118,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   8. serve_configs - smollm-135m, minicpm-2b and minitron-4b at full width
      and depth (random bf16 weights), one after another, each freed before
      the next: dense storage, policy packkv, backend "fused", 4 slots,
-     capacity 2048, monolithic admission, 4 requests of 32 new tokens. K2's
+     capacity 2048, monolithic admission, 4 requests of 16 new tokens. K2's
      launch count must equal n_layers x decode steps and K5's be 0; outputs
      in the vocabulary. Reports decode tok/s and compressed bytes per token
      against bf16.
-  9. serve_prefix - the llama2-7b engine freed, qwen3-32b at full width and
-     depth (64 layers, d_model 5120, 64 heads over 8 kv heads, hd 128,
-     qk-norm, vocab 151936; 65.5 GB of bf16 weights) through paged storage
+  9. serve_prefix - the llama2-7b engine freed, qwen3-32b at full width
+     (all 64 layers, d_model 5120, 64 heads over 8 kv
+     heads, hd 128, qk-norm, vocab 151936) through paged storage
      (pages of 256) with the prefix cache, chunked admission (one page a
      step), capacity 2048, 4 slots: 6 requests, each a shared 512-token
      system prompt and a suffix of {320, 700, 200, 450, 260, 900} tokens,
-     32 new tokens each. K5's launch count must equal n_layers x decode
+     16 new tokens each. K5's launch count must equal n_layers x decode
      steps and K2's be 0; 6 lookups, at least 4 hits, 2 pages shared per
      hit; the reserved peak within the suffix-only bound; refcounts
      conserved (free <=> ref == 0) in every layer at the end; every hit's
@@ -166,20 +168,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      lane on cuda:0: (a) llama2-7b dense, monolithic, mesh (1, 2): K2 at
      H_kv = 16; (b) llama2-7b paged (the 14-page pool), chunked, mesh
      (2, 2): K5 at H_kv = 16 with the dp row masks; (c) minitron-4b
-     (32 layers, 24 heads over 8 kv heads, hd 128) dense, monolithic,
+     (16 of its 32 layers, ``DEPTH``, 24 heads over 8 kv heads, hd 128)
+     dense, monolithic,
      mesh (1, 4): K2 at H_kv = 2, G = 3, freed before serve_prefix. The 6
-     prompts of serve, 16 new tokens, 4 slots: every request bitwise equal
-     to its (1, 1) control (a, b: the serve / serve_paged phases' first 16
-     tokens; c: a (1, 1) run here), K2 / K5 launched once a lane, layer
+     prompts of serve, 8 new tokens, 4 slots: every
+     request bitwise equal to its (1, 1) control (a, b: the serve /
+     serve_paged phases' first 8 tokens; c: a (1, 1) run here), K2 / K5 launched once a lane, layer
      and decode step and the other kernel never, every lane's page ledger
      and counters equal to lane (0, 0)'s. Reports decode tok/s, the wall
      ms a step of steady launches beside the control's (in turns), the
      device bytes a token a lane and summed, and the peak memory.
 
   13. serve_moe (after serve_prefix, qwen3-32b freed) - qwen2-moe-a2.7b at
-     full width and depth (24 layers, d_model 2048, 16 heads over 16 kv
-     heads, 60 routed experts top-4 and 4 shared, Fe 1408, vocab 151936;
-     28.6 GB of bf16), policy packkv, capacity 2048, 4 slots: 6 requests
+     full width and depth (24 layers, d_model 2048, 16 heads
+     over 16 kv heads, 60 routed experts top-4 and 4 shared, Fe 1408,
+     vocab 151936), policy packkv, capacity 2048, 4 slots: 6 requests
      (prompts 320/700/1000/450/260/900, 16 new tokens) in four runs: (a)
      dense, chunked admission: K2 == n_layers x decode steps, K5 == 0; (b)
      paged (pages of 256), chunked: every token bitwise equal to (a), K5
@@ -194,8 +197,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      within 1e-6 counted). Reports decode tok/s, C and dropped choices per
      call site, compressed bytes per token (the paper's count and the
      device's), peak memory. Then, qwen2-moe freed, moonshot-v1-16b-a3b
-     at full width and depth (48 layers, 64 experts top-6 and 2 shared,
-     vocab 163840; 57.8 GB), dense, monolithic, 4 requests of 16 new
+     at full width and depth (48 layers, 64 experts top-6 and
+     2 shared, vocab 163840), dense, monolithic, 4 requests of 16 new
      tokens: K2 == n_layers x decode steps, outputs in the vocabulary.
   14. serve_vlm - internvl2-2b at full width and depth (24 layers, 8 kv
      heads, G 2): Engine.generate at B=2 over 256 random patch embeddings
@@ -213,8 +216,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      (``solo``), the same traffic through monolithic admission bitwise
      equal, and one 1000-token admission's logits and state row equal
      chunked and monolithic. No kernel (no KV cache).
-  17. serve_rglru - recurrentgemma-9b at full width and depth (38 layers,
-     d_model 4096, 16 heads over 1 kv head of 256, window 2048, LRU width
+  17. serve_rglru - recurrentgemma-9b at full width (20 of its 38 layers,
+     ``DEPTH``: 6 groups and 2 tail blocks; d_model 4096, 16 heads over 1 kv head of 256, window 2048, LRU width
      4096, vocab 256,000), policy packkv calibrated over the window, 4
      slots, chunked admission: 5 requests (prompts 2048/700/450/900/260,
      200 new tokens for the first, whose window rings flush twice over
@@ -249,6 +252,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      (sha256 of each leaf's bytes). Reports each rank's step ms, peak
      memory, and the exchange's ms (one step's gradients summed in rank
      order, timed alone). No kernel of csrc/.
+  21. train_tp - tensor parallelism over 'model': llama2-7b at full width
+     (d_model 4096, 32 heads, d_ff 11008, vocab 32000) and qwen2-moe-a2.7b
+     at full width (60 experts of Fe 1408, split by Fe), each cut to 2
+     layers, random bf16 weights from a seed, two steps of 2 x 256 tokens:
+     two spawned ranks at (data 1, model 2) and four at (2, 2), all on
+     cuda:0 over gloo, each rank holding its blocks of the parameters and
+     ZeRO-1 moments. Checks: two (1, 2) runs bitwise equal on every rank;
+     (2, 2) bitwise equal to (1, 2) at grad_accum 2 (losses, grad norms,
+     step, fingerprints of every parameter block and of each block's
+     moments); every rank holds the rule's share of the parameter bytes; the (1, 2) runs
+     within item 15's bars of rank 0's single-device run from the same
+     init and batches (the first step's loss 1e-3, every grad norm 1e-2
+     relative, the parameters 5e-3 and first moments 0.1 of a leaf's max
+     after the first step). Reports each rank's step ms, the 'model' and
+     'data' exchanges' calls, bytes and ms, peak memory and parameter
+     bytes. No kernel of csrc/.
 
 Each phase's seconds follow it on a line of their own ("phase_seconds"),
 and the total before the card's line. Then the kernels line (K2's
@@ -269,6 +288,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# Depth cuts: the serving phases' models keep their published widths and
+# run this many of their layers (the others run all of theirs), so the
+# script stays near 750 s on an H100 host where llama2-7b at 24 layers
+# took 851 s, and inside its limit on a slower one (a phase's per-layer
+# counts follow n_layers).
+DEPTH = {"llama2-7b": 16, "minitron-4b": 16, "recurrentgemma-9b": 20}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -1526,7 +1551,7 @@ def phase_serve_faults(engine, cfg) -> dict:
 
 
 # serve_mesh: the (dp, kv) serving mesh on one card, lanes on cuda:0
-MESH_NEW = 16  # new tokens a request: the first 16 of the plain phases' 160 (32 before PR 26)
+MESH_NEW = 8  # new tokens a request: the first 8 of the plain phases' 160
 MESH_STEADY_LAUNCHES = 1  # timed 8-step launches a turn of steady_step_ms
 
 
@@ -1667,18 +1692,27 @@ def compressed_bytes_per_token(cfg, engine):
             per_tok * 2 * 2)
 
 
-def config_engine(name: str, device, seed: int, **ekw):
-    """A full-width engine of a ported config: random bf16 weights from a
-    seeded torch.Generator, policy packkv, capacity 2048, 4 slots,
-    decode_chunk 8, backend fused."""
-    import torch
+def arch(name: str, cut: bool = True):
+    """A config at its published width, ``DEPTH``'s layers when ``cut``."""
+    import dataclasses
 
     from repro_torch.configs import get_arch
+
+    cfg = get_arch(name)
+    return dataclasses.replace(cfg, n_layers=DEPTH[name]) if cut and name in DEPTH else cfg
+
+
+def config_engine(name: str, device, seed: int, cut: bool = True, **ekw):
+    """A full-width engine of a ported config (``arch``: cut in depth unless
+    ``cut`` is off): random bf16 weights from a seeded torch.Generator,
+    policy packkv, capacity 2048, 4 slots, decode_chunk 8, backend fused."""
+    import torch
+
     from repro_torch.core.policy import get_policy
     from repro_torch.models import get_model
     from repro_torch.serving import Engine, EngineConfig
 
-    cfg = get_arch(name)
+    cfg = arch(name, cut)
     params = get_model(cfg).init(torch.Generator(device=device).manual_seed(seed), cfg)
     return cfg, Engine(cfg, params, get_policy("packkv"),
                        EngineConfig(capacity=2048, max_batch=4, decode_chunk=8,
@@ -1702,7 +1736,7 @@ def free_engine(engine) -> None:
 # serve_configs: the other dense configs at full width and depth, dense
 CONFIG_SERVE = ("smollm-135m", "minicpm-2b", "minitron-4b")
 CONFIG_PROMPTS = (320, 700, 450, 900)
-CONFIG_NEW = 32
+CONFIG_NEW = 16  # cut from 32 to make room for train_tp
 
 
 def phase_serve_configs(first: tuple, device) -> dict:
@@ -1723,7 +1757,7 @@ def phase_serve_configs(first: tuple, device) -> dict:
     for i, name in enumerate(CONFIG_SERVE):
         t0 = time.perf_counter()
         cfg, engine = first if name == first[0].name else config_engine(
-            name, device, i + 10, prefill_chunk_pages=0)
+            name, device, i + 10, cut=False, prefill_chunk_pages=0)
         built = time.perf_counter() - t0
         rng = np.random.default_rng(4)
         server = SlotServer(engine)
@@ -1767,11 +1801,11 @@ def phase_serve_configs(first: tuple, device) -> dict:
 # serve_prefix: qwen3-32b with a shared system prompt, paged + prefix cache
 PREFIX_SYS = 512
 PREFIX_SUFFIXES = (320, 700, 200, 450, 260, 900)
-PREFIX_NEW = 32
+PREFIX_NEW = 16  # cut from 32 to make room for train_tp
 
 
 def phase_serve_prefix(device) -> dict:
-    """qwen3-32b at full width and depth through paged storage with the
+    """qwen3-32b at full width and depth (64 layers) through paged storage with the
     prefix cache: 6 requests opening with one 512-token system prompt
     (2 pages of 256). Every admission after the first hits the index;
     each hit's admission (last-token logits, the whole mini-cache it
@@ -2026,14 +2060,14 @@ def moe_routing_on_card(engine, cfg, prompt) -> dict:
 
 
 def phase_serve_moe(device) -> dict:
-    """qwen2-moe-a2.7b at full width and depth, 6 requests of MOE_NEW new
+    """qwen2-moe-a2.7b at full width (``DEPTH``'s layers), 6 requests of MOE_NEW new
     tokens, in four runs: (a) dense, chunked admission; (b) paged (pages of
     256), bitwise equal to (a); (c) dense, spec_k 4 with the replay drafter,
     bitwise equal to (a) for every request no verify pass dropped a routed
     choice of (at least one); (d) dense, monolithic admission, its
     agreement with (a) reported (C follows the chunk's length in one and
     the prompt's in the other). The routing on the card equals the CPU's.
-    Then moonshot-v1-16b-a3b at full width and depth, dense, 4 requests of
+    Then moonshot-v1-16b-a3b at full width (``DEPTH``'s layers), dense, 4 requests of
     16 new tokens. K2 (K5) launches n_layers x decode steps."""
     import dataclasses
 
@@ -2230,7 +2264,7 @@ def phase_encode(device) -> None:
     del params, out
 
 
-# serve_rwkv / serve_rglru: the recurrent families at full width and depth
+# serve_rwkv / serve_rglru: the recurrent families at full width (DEPTH's layers)
 RWKV_PROMPTS = (320, 700, 1000, 450, 260, 900)  # 700, 1000, 450, 260: a sequential tail
 RWKV_NEW = 16  # 32 before PR 26
 RGLRU_PROMPTS = (2048, 700, 450, 900, 260)
@@ -2391,8 +2425,9 @@ def phase_serve_rwkv(device) -> dict:
 
 
 def phase_serve_rglru(device) -> dict:
-    """recurrentgemma-9b at full width and depth (38 layers: 12 groups of
-    two RG-LRU blocks and a local-attention block, then 2 RG-LRU blocks;
+    """recurrentgemma-9b at full width (``DEPTH``'s 20 of 38 layers: 6
+    groups of two RG-LRU blocks and a local-attention block, then 2 RG-LRU
+    blocks;
     d_model 4096, 16 query heads over 1 kv head of 256, window 2048, LRU
     width 4096, vocab 256,000; random weights), policy packkv (calibrated
     over the window), 4 slots, chunked admission: 5 requests (prompts
@@ -2736,12 +2771,7 @@ def train_dp_rank(rank: int, world: int, d: str, dev: str, smoke: bool) -> None:
     from repro_torch.distributed.exchange import sum_in_rank_order
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.training import init_training, make_train_step
-    from repro_torch.training.train import (
-        _accumulate,
-        _row_block,
-        gather_opt_state,
-        shard_opt_state,
-    )
+    from repro_torch.training.train import _accumulate, _row_block
     from repro_torch.utils import tree_flatten
 
     device = torch.device(dev)
@@ -2752,7 +2782,8 @@ def train_dp_rank(rank: int, world: int, d: str, dev: str, smoke: bool) -> None:
         mesh = make_debug_mesh(data=world, device=device)
         params, opt = init_training(api, cfg, torch.Generator(device=device).manual_seed(DP_SEED))
         specs = sharding.opt_state_specs(params, mesh)
-        opt = shard_opt_state(opt, specs, mesh)
+        state_specs = sharding.train_state_specs(params, mesh)
+        opt = sharding.shard_tree(opt, state_specs[1], mesh)
         step_fn = make_train_step(api, cfg, oc, 1, accum_pspecs=specs)
         cuda = device.type == "cuda"
         cuda_sync(device)
@@ -2783,7 +2814,7 @@ def train_dp_rank(rank: int, world: int, d: str, dev: str, smoke: bool) -> None:
             del grads
         finally:
             sharding.set_active_mesh(None)
-        full = gather_opt_state(opt, specs, params, mesh)
+        full = sharding.gather_tree(opt, state_specs[1], mesh)
         local_moment_bytes = sum(x.numel() * 4 for x in tree_flatten(opt.mu)[0]) * 2
         torch.save({"metrics": metrics, "ms": ms, "peak": peak, "exchange_ms": exchange_ms,
                     "grad_bytes": grad_bytes, "moment_bytes": local_moment_bytes,
@@ -2841,6 +2872,311 @@ def phase_train_dp(device, card: str, smoke: bool = False) -> None:
           "rank_moment_bytes": [res["moment_bytes"] for res in ranks],
           "control_step_ms": ms, "ranks_wall_s": ranks_s, "nvidia_smi": card})
     del params, opt, batches
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+TP_ARCH, TP_MOE = "llama2-7b", "qwen2-moe-a2.7b"
+TP_LAYERS = 2  # full width, depth cut from 32 (llama2-7b) and 24 (qwen2-moe-a2.7b)
+TP_STEPS, TP_BATCH, TP_SEQ, TP_SEED = 2, 2, 256, 7
+
+
+def tp_setup(name: str, device, smoke: bool):
+    """The train_tp phase's model (full width, TP_LAYERS deep; its smoke
+    config to rehearse on the CPU), optimizer config and batches (every
+    rank and the control make the same ones)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ShardedTokenStream
+    from repro_torch.models import get_model
+    from repro_torch.training import OptConfig
+
+    cfg = get_arch(name, smoke=smoke)
+    if not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    stream = ShardedTokenStream(vocab=cfg.vocab, batch_per_host=TP_BATCH, seq=TP_SEQ,
+                                seed=TP_SEED)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in stream.next_batch().items()}
+               for _ in range(TP_STEPS)]
+    return cfg, get_model(cfg), OptConfig(lr=1e-3, warmup_steps=1, total_steps=10), batches
+
+
+def fingerprint(tree) -> list:
+    """Two wrapping 64-bit sums of each leaf's 16-bit words, weighted by
+    two odd functions of the word's index (on the leaf's device, 2^26
+    words at a time): one changed word changes both. The train_tp
+    phase compares runs bitwise by them without moving its gigabytes of
+    state to the host."""
+    import torch
+
+    from repro_torch.utils import tree_flatten
+
+    out = []
+    for x in tree_flatten(tree)[0]:
+        words = x.detach().contiguous().view(-1).view(torch.int16)
+        sums = [0, 0]
+        for a in range(0, words.numel(), 1 << 26):
+            w = words[a:a + (1 << 26)].to(torch.int64)
+            i = torch.arange(a, a + w.numel(), device=w.device, dtype=torch.int64)
+            sums[0] += int(torch.sum(w * (2 * i + 1)))
+            sums[1] += int(torch.sum(w * (i * 6364136223846793005 + 1442695040888963407)))
+        out.append(tuple(v % (1 << 64) for v in sums))
+    return out
+
+
+def without_axis(specs, like, axis: str):
+    """A spec tree shaped as ``like`` with ``axis`` taken out of every
+    entry (the blocks a rank holds once that axis is gathered)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.utils import tree_flatten
+
+    def strip(entry):
+        axes = tuple(a for a in sharding._axes(entry) if a != axis)
+        return (axes[0] if len(axes) == 1 else axes) if axes else None
+
+    treedef = tree_flatten(like)[1]
+    return treedef.unflatten([tuple(strip(e) for e in spec)
+                              for spec in sharding.spec_leaves(specs, treedef)])
+
+
+def tp_run(name: str, mesh, device, smoke: bool, grad_accum: int = 1,
+           keep_first: bool = False) -> dict:
+    """TP_STEPS steps of ``name`` under ``mesh`` from the seed's init, each
+    rank holding its blocks of the parameters and ZeRO-1 moments: the
+    metrics, each step's ms, the exchanges' calls / bytes / ms by group,
+    peak memory, this rank's parameter bytes beside the rule's share and
+    the full model's, fingerprints of its parameter block and of its
+    block's moments (gathered over 'data'), seconds by part, and with
+    ``keep_first`` rank 0's host copy of the whole parameters and first
+    moments after the first step (``first_state``)."""
+    import torch
+
+    from repro_torch.distributed import exchange, sharding
+    from repro_torch.training import init_opt_state, make_train_step
+    from repro_torch.utils import tree_flatten
+
+    t0 = time.perf_counter()
+    cfg, api, oc, batches = tp_setup(name, device, smoke)
+    params = api.init(torch.Generator(device=device).manual_seed(TP_SEED), cfg)
+    leaves, treedef = tree_flatten(params)
+    pspecs = sharding.param_specs(params, mesh)
+    nbytes = lambda x: x.numel() * x.element_size()
+    full_bytes = sum(nbytes(x) for x in leaves)
+    rule_bytes = sum(nbytes(x) // (mesh.model_size if "model" in spec else 1)
+                     for x, spec in zip(leaves, sharding.spec_leaves(pspecs, treedef)))
+    zero = sharding.opt_state_specs(params, mesh)
+    specs = sharding.train_state_specs(params, mesh)
+    params = sharding.shard_tree(params, specs[0], mesh)
+    del leaves
+    # the moments start at zero: made at the parameter blocks' shapes, then
+    # cut to this rank's 'data' slices
+    opt = init_opt_state(params)
+    blocks = without_axis(specs, (params, opt), "model")
+    opt = sharding.shard_tree(opt, blocks[1], mesh)
+    cuda_sync(device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    local_bytes = sum(nbytes(x) for x in tree_flatten(params)[0])
+    step_fn = make_train_step(api, cfg, oc, grad_accum, param_pspecs=pspecs, accum_pspecs=zero)
+    groups = {"model": id(mesh.model_group), "data": id(mesh.dp_group)}
+    out = {"metrics": [], "ms": [], "exchange": {g: [0, 0, 0.0] for g in groups},
+           "seconds": {"init": time.perf_counter() - t0, "gather": 0.0}}
+    sharding.set_active_mesh(mesh)
+    try:
+        for i, b in enumerate(batches):
+            cuda_sync(device)
+            t0 = time.perf_counter()
+            with exchange.traffic() as tr:
+                params, opt, m = step_fn(params, opt, b)
+                loss = float(m["loss"])
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append([loss, float(m["grad_norm"]), int(m["step"])])
+            for g, key in groups.items():
+                row = tr.get(key, [0, 0, 0.0])
+                tot = out["exchange"][g]
+                tot[0], tot[1], tot[2] = tot[0] + row[0], tot[1] + row[1], tot[2] + row[2] * 1e3
+            if i == 0 and keep_first:
+                t0 = time.perf_counter()
+                out["first"] = first_state(params, opt, specs, mesh)
+                out["seconds"]["gather"] += time.perf_counter() - t0
+    finally:
+        sharding.set_active_mesh(None)
+    out["peak"] = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    t0 = time.perf_counter()
+    opt = sharding.gather_tree(opt, blocks[1], mesh)  # this block's moments, whole
+    out.update(fingerprint=fingerprint((params, opt.mu, opt.nu)), local_bytes=local_bytes,
+               rule_bytes=rule_bytes, full_bytes=full_bytes)
+    out["seconds"]["gather"] += time.perf_counter() - t0
+    del params, opt
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def first_state(params, opt, specs, mesh):
+    """The parameters and first moments after the first step, every leaf
+    gathered whole one at a time (every rank takes part); rank 0 keeps
+    host copies (None elsewhere)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.utils import tree_flatten
+
+    out = ([], [])
+    for kept, tree, tspecs in ((out[0], params, specs[0]), (out[1], opt.mu, specs[1].mu)):
+        leaves, treedef = tree_flatten(tree)
+        for x, spec in zip(leaves, sharding.spec_leaves(tspecs, treedef)):
+            whole = sharding.gather_tree([x], [spec], mesh)[0]
+            if mesh.rank == 0:
+                kept.append(whole.to("cpu", copy=True))
+            del whole
+    return out if mesh.rank == 0 else None
+
+
+def tp_control(name: str, device, smoke: bool, first) -> dict:
+    """This process's single-device run of ``name`` from the same init and
+    batches: its metrics and step ms, and after the first step the largest
+    parameter difference from the mesh run's ``first`` state (host copies,
+    moved to the card a leaf at a time) and the largest first-moment gap
+    as a share of its leaf's max."""
+    import torch
+
+    from repro_torch.training import init_training, make_train_step
+    from repro_torch.utils import tree_flatten
+
+    cfg, api, oc, batches = tp_setup(name, device, smoke)
+    params, opt = init_training(api, cfg, torch.Generator(device=device).manual_seed(TP_SEED))
+    step_fn = make_train_step(api, cfg, oc)
+    out = {"metrics": [], "ms": []}
+    for i, b in enumerate(batches):
+        cuda_sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        out["metrics"].append([float(m["loss"]), float(m["grad_norm"]), int(m["step"])])
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            gaps = {"param_gap": [], "mu_gap": []}
+            for key, got, want in (("param_gap", first[0], tree_flatten(params)[0]),
+                                   ("mu_gap", first[1], tree_flatten(opt.mu)[0])):
+                for a, w in zip(got, want):
+                    gap = float((a.to(w.device).float() - w.float()).abs().max())
+                    if key == "mu_gap":
+                        gap /= max(float(w.abs().max()), 1e-30)
+                    gaps[key].append(gap)
+            out.update({k: max(v) for k, v in gaps.items()})
+    del params, opt, first
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_tp_rank(rank: int, world: int, d: str, dev: str, smoke: bool) -> None:
+    """One rank of the train_tp phase (spawned: this module is its main):
+    two ranks at (data 1, model 2), or four at (2, 2), sharing ``dev``
+    over gloo; rank 0 of the two then runs the single-device controls."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t0 = time.perf_counter()
+    device = torch.device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(d, f'init{world}')}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_debug_mesh(data=world // 2, model=2, device=device)
+        jobs = ([("a", TP_ARCH, 1, True), ("b", TP_ARCH, 1, False), ("acc2", TP_ARCH, 2, False),
+                 ("moe", TP_MOE, 1, True)] if world == 2 else [("dp", TP_ARCH, 1, False)])
+        res = {"start_s": time.perf_counter() - t0}
+        for job, name, accum, keep in jobs:
+            res[job] = tp_run(name, mesh, device, smoke, accum, keep)
+    finally:
+        dist.destroy_process_group()
+    for job, name in (("a", TP_ARCH), ("moe", TP_MOE)):
+        if job in res and res[job].get("first") is not None:
+            t0 = time.perf_counter()
+            res[job]["control"] = tp_control(name, device, smoke, res[job].pop("first"))
+            res[job]["seconds"]["control"] = time.perf_counter() - t0
+    for run in res.values():
+        if isinstance(run, dict):
+            run.pop("first", None)
+    torch.save(res, os.path.join(d, f"tp{world}_rank{rank}.pt"))
+
+
+def phase_train_tp(device, card: str, smoke: bool = False) -> None:
+    """Tensor parallelism over 'model' on this one card (see the module
+    docstring, phase 21)."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    if device.type == "cuda":  # the card to the ranks: what earlier phases cached
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() if device.type == "cuda" else None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+        walls = {}
+        for world in (2, 4):
+            t0 = time.perf_counter()
+            mp.spawn(train_tp_rank, args=(world, d, str(device), smoke), nprocs=world,
+                     join=True)
+            walls[world] = time.perf_counter() - t0
+        two = [torch.load(f"{d}/tp2_rank{r}.pt", weights_only=False) for r in range(2)]
+        four = [torch.load(f"{d}/tp4_rank{r}.pt", weights_only=False) for r in range(4)]
+    for r, res in enumerate(two):
+        check(res["a"]["metrics"] == res["b"]["metrics"] == two[0]["a"]["metrics"]
+              and res["a"]["fingerprint"] == res["b"]["fingerprint"],
+              f"train_tp rank {r}: two (1, 2) runs differ")
+    for r, res in enumerate(four):  # rank r holds model block r % 2
+        want = two[r % 2]["acc2"]
+        check(res["dp"]["metrics"] == want["metrics"]
+              and res["dp"]["fingerprint"] == want["fingerprint"],
+              f"train_tp (2, 2) rank {r} differs from (1, 2) at grad_accum 2")
+    for r, res in enumerate(two + four):
+        for job, run in res.items():
+            if job != "start_s":  # a run of this rank
+                check(run["local_bytes"] == run["rule_bytes"] < run["full_bytes"],
+                      f"train_tp rank {r} {job}: {run['local_bytes']} bytes held, the "
+                      f"rule gives {run['rule_bytes']} of {run['full_bytes']}")
+    bars = {}
+    for job in ("a", "moe"):
+        run, ctl = two[0][job], two[0][job]["control"]
+        loss_gap = abs(run["metrics"][0][0] - ctl["metrics"][0][0])
+        gnorm_gap = max(abs(a[1] - b[1]) / b[1] for a, b in zip(run["metrics"], ctl["metrics"]))
+        bars[job] = {"loss_gap_step1": loss_gap, "grad_norm_rel_gap": gnorm_gap,
+                     "param_gap_step1": ctl["param_gap"], "mu_gap_step1": ctl["mu_gap"],
+                     "loss_gap_step2": abs(run["metrics"][1][0] - ctl["metrics"][1][0])}
+        check(loss_gap < 1e-3 and gnorm_gap <= 1e-2 and ctl["param_gap"] < 5e-3
+              and ctl["mu_gap"] <= 0.1, f"train_tp {job}: (1, 2) outside item 15's bars "
+              f"of the single-process step: {bars[job]}")
+    rank = lambda res, job: {
+        "step_ms": res[job]["ms"], "model_exchange_calls_bytes_ms": res[job]["exchange"]["model"],
+        "data_exchange_calls_bytes_ms": res[job]["exchange"]["data"],
+        "peak_memory_bytes": res[job]["peak"], "param_bytes": res[job]["local_bytes"],
+        "seconds": res[job]["seconds"]}
+    emit({"phase": "train_tp", "arch": TP_ARCH, "moe": TP_MOE, "n_layers": TP_LAYERS,
+          "batch": TP_BATCH, "seq": TP_SEQ, "steps": TP_STEPS, "device": f"{device} shared",
+          "backend": "gloo", "full_param_bytes": {"a": two[0]["a"]["full_bytes"],
+                                                  "moe": two[0]["moe"]["full_bytes"]},
+          "metrics_1x2": two[0]["a"]["metrics"], "metrics_moe_1x2": two[0]["moe"]["metrics"],
+          "metrics_2x2": four[0]["dp"]["metrics"], "bars": bars,
+          "control_step_ms": {"a": two[0]["a"]["control"]["ms"],
+                              "moe": two[0]["moe"]["control"]["ms"]},
+          "ranks_1x2": [rank(res, "a") for res in two],
+          "ranks_1x2_repeat": [rank(res, "b") for res in two],
+          "ranks_moe_1x2": [rank(res, "moe") for res in two],
+          "ranks_1x2_accum2": [rank(res, "acc2") for res in two],
+          "ranks_2x2": [rank(res, "dp") for res in four],
+          "rank_start_s": [res["start_s"] for res in two + four],
+          "repeat_bitwise": True, "2x2_equals_1x2_accum2_bitwise": True,
+          "ranks_wall_s": walls, "main_process_bytes": held, "nvidia_smi": card})
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -3421,7 +3757,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_arch
     from repro_torch.core.policy import get_policy
     from repro_torch.kernels import build
     from repro_torch.models import get_model
@@ -3445,7 +3780,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(build.LIBRARIES), "compiled": sorted(logs)})
 
-    cfg = get_arch("llama2-7b")
+    cfg = arch("llama2-7b")
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     params = get_model(cfg).init(gen, cfg)
@@ -3491,6 +3826,7 @@ def main() -> int:
     timed(phase_train, device, card)
     timed(phase_train_launch, device, card)
     timed(phase_train_dp, device, card)
+    timed(phase_train_tp, device, card)
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(card, flush=True)
     row = lambda name, source, replaces, k, launches: {

@@ -6,6 +6,7 @@ from .sharded import (  # noqa: F401
     latest_step,
     load_mini,
     restore,
+    restore_sliced,
     save,
     save_mini,
 )

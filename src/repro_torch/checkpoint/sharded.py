@@ -19,6 +19,13 @@ are the same bytes. ``restore`` puts each leaf where the caller's
 ``like_tree`` says (a tensor on ``device``); ``load_mini`` gives back
 tensors for the leaves that were tensors. No path that loads a tensor
 needs ``ml_dtypes``.
+
+A mesh of ranks writes full arrays: its ``AsyncCheckpointer`` gathers
+every rank's blocks of each leaf (by a spec tree,
+``distributed.sharding``) and rank 0 writes them in the single-process
+format; ``restore_sliced`` reads them back and cuts this rank's blocks by
+the specs of whatever mesh it runs on, so a run resumes at another mesh
+shape.
 """
 from __future__ import annotations
 
@@ -160,6 +167,16 @@ def restore(path: str, step: int, like_tree, device="cuda"):
     return treedef.unflatten(leaves), manifest["extra"]
 
 
+def restore_sliced(path: str, step: int, like_tree, specs, mesh, device="cuda"):
+    """``restore`` of a full-array checkpoint, then this rank's blocks by
+    ``specs`` (the specs of this run's mesh: any mesh shape; None: one
+    process, the whole tree): (tree, extra)."""
+    from ..distributed.sharding import shard_tree
+
+    tree, extra = restore(path, step, like_tree, device)
+    return (tree if specs is None else shard_tree(tree, specs, mesh)), extra
+
+
 def gc_old(path: str, keep: int) -> None:
     """Delete all but the newest ``keep`` committed steps."""
     if not os.path.isdir(path):
@@ -175,15 +192,24 @@ class AsyncCheckpointer:
     waits for the first save: back-pressure, not unbounded host memory).
     ``submit`` copies every leaf to the host before it returns, so the
     caller may update its tensors in place at once; a save's error is
-    raised by the next ``submit`` or by ``close``."""
+    raised by the next ``submit`` or by ``close``.
 
-    def __init__(self, path: str, keep: int = 3):
+    Under a mesh of ranks (``specs``: the spec tree the ranks store the
+    tree by, ``mesh``: theirs) every rank submits and closes: ``submit``
+    gathers each leaf whole (``sharding.gather_tree``, every rank taking
+    part) and rank 0 alone writes; ``close`` returns on every rank once the
+    last save is committed."""
+
+    def __init__(self, path: str, keep: int = 3, specs=None, mesh=None):
         self.path = path
         self.keep = keep
+        self.specs, self.mesh = specs, mesh
+        self.writes = mesh is None or mesh.rank == 0
         self.q: queue.Queue = queue.Queue(maxsize=1)
         self.errors: list[Exception] = []
         self._t = threading.Thread(target=self._worker, daemon=True)
-        self._t.start()
+        if self.writes:
+            self._t.start()
 
     def _worker(self):
         while True:
@@ -202,12 +228,22 @@ class AsyncCheckpointer:
     def submit(self, step: int, tree, extra: dict | None = None) -> None:
         if self.errors:
             raise self.errors[0]
-        self.q.put((step, to_host(tree), extra))
+        if self.specs is not None:
+            from ..distributed.sharding import gather_tree
+
+            tree = gather_tree(tree, self.specs, self.mesh)
+        if self.writes:
+            self.q.put((step, to_host(tree), extra))
 
     def close(self) -> None:
-        self.q.join()
-        self.q.put(None)
-        self._t.join()
+        if self.writes:
+            self.q.join()
+            self.q.put(None)
+            self._t.join()
+        if self.specs is not None:
+            import torch.distributed as dist
+
+            dist.barrier()  # committed before any rank reads it
         if self.errors:
             raise self.errors[0]
 

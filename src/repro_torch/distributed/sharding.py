@@ -26,16 +26,22 @@ front); the page ledger and the per-row counters stay replicated.
 
 Every rule is divisibility-checked: a dim that does not divide its axis,
 or an axis of size 1, stays replicated, so every (config, mesh) pair has
-specs. The port runs the 'data' and 'pod' axes for real, one
-``torch.distributed`` rank a device (``training/train.py``); the 'model'
-rules wait for a tensor-parallel step, which the training step refuses.
-The reference's ``to_named`` (an XLA ``NamedSharding``) has no
-counterpart: a rank's tensors are its local blocks.
+specs. The port runs every axis for real, one ``torch.distributed`` rank
+a device (``training/train.py``). The reference's ``to_named`` (an XLA
+``NamedSharding``) has no counterpart: a rank's tensors are its local
+blocks. ``shard_tree`` cuts a full tree to this rank's blocks by a spec
+tree and ``gather_tree`` makes the blocks whole again (checkpoints hold
+full arrays). A rank stores a leaf by ``storage_specs``: the rule's spec,
+except that MoE experts the rule splits by expert (E over 'model') are
+stored split by their Fe dim instead, at the same bytes a rank, because
+the expert FFN computes over Fe slices (``models/moe.py::moe_apply``).
 """
 from __future__ import annotations
 
 import math
 import re
+
+import torch
 
 from ..utils import TreeDef, tree_flatten, tree_flatten_with_path
 
@@ -313,7 +319,7 @@ _ACTIVE_MESH = None
 
 
 def set_active_mesh(mesh) -> None:
-    """Make ``mesh`` the one the training step and ``moe_apply`` read
+    """Make ``mesh`` the one the training step and ``constrain`` read
     (None: single device). A launcher resets it when it is done."""
     global _ACTIVE_MESH
     _ACTIVE_MESH = mesh
@@ -327,11 +333,133 @@ def constrain(x, *axes):
     """The reference pins activations by axis names ('batch' -> the
     data-parallel axes) through ``with_sharding_constraint``. Here the
     spec is computed (divisibility-checked, so a bad name still raises)
-    and ``x`` itself is returned: under data parallelism a rank's tensors
-    are already its local block, so there is nothing to pin."""
+    and ``x`` itself is returned, under a 'model' axis too: a rank's
+    tensors are already its local block, and the sequence pin of the
+    residual stream is made explicit in the layers, by the exchanges of
+    ``distributed.exchange`` (``model_lanes`` gives the forwards their
+    'model' line and says whether the stream is sequence-sharded)."""
     mesh = _ACTIVE_MESH
     if mesh is None:
         return x
     dp = dp_axes(mesh)
     spec_with_fallback(x.shape, [dp if a == "batch" else a for a in axes], mesh)
     return x
+
+
+def model_lanes(seq_len: int):
+    """The active mesh's 'model' line of ranks for a forward over
+    ``seq_len`` positions (an ``exchange.ModelGroup``), or None when no
+    mesh is active or its 'model' axis is 1. A 'model' axis above 1 needs
+    a mesh of ranks (``launch.mesh.TrainMesh``)."""
+    mesh = _ACTIVE_MESH
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return None
+    if not hasattr(mesh, "model_lanes"):
+        raise TypeError("a 'model' axis above 1 is tensor parallelism over ranks: "
+                        "activate a launch.mesh.TrainMesh, not a mesh of axis sizes")
+    return mesh.model_lanes(seq_len)
+
+
+# ---------------------------------------------------------------------------
+# a rank's blocks of a tree
+# ---------------------------------------------------------------------------
+
+_EXPERT_FE = {"w_gate": -1, "w_up": -1, "w_down": -2}  # the Fe dim of an expert leaf
+
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _storage_spec(names, spec: tuple) -> tuple:
+    """An expert leaf ([.., E, D, Fe] / [.., E, Fe, D], outside the shared
+    experts) whose spec puts 'model' on E is stored split by Fe; 'data'
+    (a ZeRO-1 moment's) stays where it was, inside 'model' on a shared
+    dim."""
+    fe = _EXPERT_FE.get(names[-1])
+    if fe is None or "shared" in names or len(spec) < 3 or "model" not in _axes(spec[-3]):
+        return spec
+    out = list(spec)
+    e_axes = tuple(a for a in _axes(out[-3]) if a != "model")
+    out[-3] = (e_axes[0] if len(e_axes) == 1 else e_axes) or None
+    fe_axes = ("model",) + _axes(out[fe])
+    out[fe] = fe_axes[0] if len(fe_axes) == 1 else fe_axes
+    return tuple(out)
+
+
+def storage_specs(tree, mesh, specs=None):
+    """How a rank stores each leaf of ``tree`` (a parameter tree, or a
+    moment tree shaped as one): ``specs`` (default ``param_specs(tree,
+    mesh)``; for moments, ``opt_state_specs(...).mu``) with the experts'
+    Fe override (module docstring)."""
+    leaves, treedef = tree_flatten_with_path(tree)
+    specs = param_specs(tree, mesh) if specs is None else specs
+    flat = spec_leaves(specs, tree_flatten(tree)[1])
+    return treedef.unflatten([_storage_spec(path, spec)
+                              for (path, _), spec in zip(leaves, flat)])
+
+
+def _index(mesh, axes) -> tuple[int, int]:
+    """(this rank's block index, the block count) over ``axes``,
+    row-major."""
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * mesh.shape[a] + mesh.coords[a], n * mesh.shape[a]
+    return idx, n
+
+
+def shard_tree(tree, specs, mesh):
+    """Every leaf cut to this rank's block by its spec (``specs`` shaped
+    as ``tree``): contiguous copies; a replicated leaf is returned as it
+    is."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for x, spec in zip(leaves, spec_leaves(specs, treedef)):
+        for d, entry in enumerate(spec):
+            i, n = _index(mesh, _axes(entry))
+            if n > 1:
+                if x.shape[d] % n:
+                    raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                                     f"over {n} ranks ({entry})")
+                x = x.narrow(d, i * (x.shape[d] // n), x.shape[d] // n).contiguous()
+        out.append(x)
+    return treedef.unflatten(out)
+
+
+def _group_of(mesh, axis: str):
+    if axis == "model":
+        return mesh.model_group, mesh.model_size
+    if axis == "data":
+        return mesh.data_group, mesh.data_size
+    raise ValueError(f"no gather over axis {axis!r}")
+
+
+def gather_tree(tree, specs, mesh):
+    """``shard_tree``'s inverse: every rank's blocks of each leaf gathered
+    whole (every rank of the mesh takes part, in the same leaf order)."""
+    from .exchange import all_gather
+
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for x, spec in zip(leaves, spec_leaves(specs, treedef)):
+        for d, entry in enumerate(spec):
+            for a in reversed(_axes(entry)):  # the inner axis first
+                group, n = _group_of(mesh, a)
+                if n > 1:
+                    x = torch.cat(all_gather(x, group, n), dim=d)
+        out.append(x)
+    return treedef.unflatten(out)
+
+
+def train_state_specs(params, mesh, zero: bool = True):
+    """How a rank stores the training state (params, ``OptState``) of the
+    full ``params``: the parameters by ``storage_specs``, the moments by
+    the ZeRO-1 specs of ``opt_state_specs`` (``zero``) or as the
+    parameters. ``shard_tree`` / ``gather_tree`` of the state read it."""
+    from ..training.optimizer import OptState
+
+    store = storage_specs(params, mesh)
+    mom = storage_specs(params, mesh, opt_state_specs(params, mesh).mu) if zero else store
+    return (store, OptState(mu=mom, nu=mom, step=()))

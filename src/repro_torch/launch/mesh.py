@@ -9,9 +9,9 @@ caller's device.
 
 Each rank's ``TrainMesh`` knows its coordinates and the process groups
 of the ranks it exchanges with: ``dp_group`` (its 'pod' x 'data' slice:
-gradients) and ``data_group`` (its 'data' line: ZeRO-1 moments). Every
-rank creates every group, in the same order, as ``dist.new_group``
-requires.
+gradients), ``data_group`` (its 'data' line: ZeRO-1 moments) and
+``model_group`` (its 'model' line: tensor parallelism). Every rank creates
+every group, in the same order, as ``dist.new_group`` requires.
 """
 from __future__ import annotations
 
@@ -38,8 +38,9 @@ class TrainMesh(SpecMesh):
     JAX mesh has them; ``rank``, ``coords`` (axis -> this rank's index),
     ``device``, ``dp_size`` / ``dp_index`` (row-major over 'pod' x
     'data': this rank's block of the global batch), ``data_size`` /
-    ``data_index``, and the groups ``dp_group`` / ``data_group`` (None is
-    the default group, or no group at all in a world of one)."""
+    ``data_index``, ``model_size`` / ``model_index``, and the groups
+    ``dp_group`` / ``data_group`` / ``model_group`` (None is the default
+    group, or no group at all in a world of one)."""
 
     def __init__(self, shape: dict, rank: int, device):
         super().__init__(shape)
@@ -55,8 +56,22 @@ class TrainMesh(SpecMesh):
             [self.coords[a] for a in dp], [self.shape[a] for a in dp])) if dp else 0
         self.data_size = self.shape.get("data", 1)
         self.data_index = self.coords.get("data", 0)
+        self.model_size = self.shape.get("model", 1)
+        self.model_index = self.coords.get("model", 0)
         self.dp_group = self._group(dp)
         self.data_group = self._group(["data"] if "data" in self.shape else [])
+        self.model_group = self._group(["model"] if "model" in self.shape else [])
+
+    def model_lanes(self, seq_len: int):
+        """This rank's 'model' line as an ``exchange.ModelGroup`` for a
+        forward over ``seq_len`` positions (the stream is sequence-sharded
+        when the line's size divides it), or None for a line of one."""
+        if self.model_size == 1:
+            return None
+        from ..distributed.exchange import ModelGroup
+
+        return ModelGroup(self.model_group, self.model_size, self.model_index,
+                          seq=seq_len % self.model_size == 0)
 
     def _group(self, axes: list):
         """The group of ranks that differ from this one only along

@@ -17,13 +17,15 @@ it is ``make_debug_mesh(data=n)``: every rank reads the same global batch
 from the stream, the step splits it by rows and exchanges gradients in
 rank order (``training/train.py``), and AdamW's moments are ZeRO-1 slices
 over 'data'. ``prod`` asks for 16 x 16 ranks and ``prod-multi`` for 2 x
-16 x 16: they refuse any other world size. Each rank takes
+16 x 16 (they refuse any other world size): there the 16 'model' ranks
+of a line are tensor parallel, each holding its blocks of the
+parameters and moments (``sharding.train_state_specs``). Each rank takes
 cuda:LOCAL_RANK when the machine has a card a rank, and shares cuda:0
 otherwise; the backend is NCCL when every rank has a card of its own and
 gloo otherwise (on the CPU too). Rank 0 alone prints and writes
-checkpoints, in the single-process format (full arrays: the moments are
-gathered first), so --resume at any data size re-slices them: an elastic
-restart.
+checkpoints, in the single-process format (full arrays: every rank's
+blocks are gathered first), so --resume at any mesh re-slices them: an
+elastic restart.
 
 Example (on a CUDA GPU; add ``--device cpu --smoke`` to run on the CPU):
 
@@ -39,14 +41,13 @@ import os
 
 import torch
 
-from ..checkpoint import AsyncCheckpointer, latest_step, restore
+from ..checkpoint import AsyncCheckpointer, latest_step, restore_sliced
 from ..configs import get_arch
 from ..data import ShardedTokenStream
 from ..distributed import StragglerMonitor, downscale_plan
 from ..distributed import sharding as shd
 from ..models import get_model
 from ..training import OptConfig, init_opt_state, make_train_step
-from ..training.train import gather_opt_state, shard_opt_state
 from .mesh import make_debug_mesh, make_production_mesh
 
 
@@ -134,24 +135,29 @@ def _train(args, cfg, api, opt_cfg, device: str) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = api.init(gen, cfg)
     opt_state = init_opt_state(params)
-    start_step = 0
-    if args.resume and args.ckpt_dir:
-        last = latest_step(args.ckpt_dir)
-        if last is not None:
-            (params, opt_state), extra = restore(args.ckpt_dir, last,
-                                                 (params, opt_state), device)
-            stream.restore(extra["stream"])
-            start_step = last
-            say(f"resumed from step {last}")
     zero = shd.opt_state_specs(params, mesh) if mesh.size > 1 else None
-    if zero is not None:  # ZeRO-1: this rank keeps its 'data' slice
-        opt_state = shard_opt_state(opt_state, zero, mesh)
+    pspecs = shd.param_specs(params, mesh) if mesh.shape.get("model", 1) > 1 else None
+    # this rank's blocks of the state: 'model' and ZeRO-1 'data'
+    state_specs = shd.train_state_specs(params, mesh) if mesh.size > 1 else None
+    start_step = 0
+    last = latest_step(args.ckpt_dir) if args.resume and args.ckpt_dir else None
+    if last is not None:
+        (params, opt_state), extra = restore_sliced(
+            args.ckpt_dir, last, (params, opt_state), state_specs, mesh, device)
+        stream.restore(extra["stream"])
+        start_step = last
+        say(f"resumed from step {last}")
+    elif state_specs is not None:
+        params, opt_state = shd.shard_tree((params, opt_state), state_specs, mesh)
     if mesh.size > 1:
         say(f"mesh {dict(mesh.shape)}: {mesh.size} ranks on "
-            f"{dist.get_backend()}, moments ZeRO-1 over 'data'")
+            f"{dist.get_backend()}, moments ZeRO-1 over 'data'"
+            + (f", tensor parallel over 'model' {mesh.model_size}" if pspecs else ""))
 
-    step_fn = make_train_step(api, cfg, opt_cfg, args.grad_accum, accum_pspecs=zero)
-    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir and lead else None
+    step_fn = make_train_step(api, cfg, opt_cfg, args.grad_accum, param_pspecs=pspecs,
+                              accum_pspecs=zero)
+    ckpt = (AsyncCheckpointer(args.ckpt_dir, specs=state_specs, mesh=mesh)
+            if args.ckpt_dir else None)
     monitor = StragglerMonitor()
     shd.set_active_mesh(mesh if mesh.size > 1 else None)
     try:
@@ -168,12 +174,8 @@ def _train(args, cfg, api, opt_cfg, device: str) -> int:
             if step % 5 == 0 or step == args.steps - 1:
                 say(f"step {step}: loss={loss:.4f} "
                     f"gnorm={float(metrics['grad_norm']):.3f} [{verdict}]")
-            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                full = (opt_state if zero is None else
-                        gather_opt_state(opt_state, zero, params, mesh))
-                if ckpt:
-                    ckpt.submit(step + 1, (params, full), {"stream": stream.state()})
-                del full
+            if ckpt and (step + 1) % args.ckpt_every == 0:
+                ckpt.submit(step + 1, (params, opt_state), {"stream": stream.state()})
     finally:
         shd.set_active_mesh(None)
         if ckpt:

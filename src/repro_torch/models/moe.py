@@ -6,14 +6,20 @@ scatter/gather dispatch (a token's slot in its expert from a token-major
 buffer (``torch.bmm``), the shared experts as a plain SwiGLU, and the
 Switch load-balancing aux loss.
 
-``_moe_sharded`` is the reference's ``shard_map`` path with one
-controller, over a global x: each data-parallel block of rows is
-dispatched alone, so C follows the block's token count, and under a
-'model' axis the expert FFN runs as Fe slices whose partial outputs are
-added in model order (the reference's ``psum``). ``moe_apply`` does not
-call it: a data-parallel rank's rows are already its one block, which
-the single-device path dispatches alone, and the 'model' axis waits for
-tensor parallelism (ROADMAP item 16c).
+Under a mesh of ranks (training) ``moe_apply`` runs one block of the
+reference's ``shard_map`` dispatch: a rank's x is its data block, whole
+over the sequence (the tensor-parallel stream is gathered before the
+MLP: the capacity counts the block's tokens, as the reference's
+``x_spec`` (dp, None, None) does), routed alone; under a 'model' line
+(``tp``) each rank computes its slice of the expert FFN's Fe units (the
+stored Fe slice, ``sharding.storage_specs``) and of the shared experts'
+units, and the slices' partial sums are added in model order (the
+reference's ``psum``): the down product's before the gates, so each
+output rounds where the single-device one does. The routing's gradient
+(through the gates and the aux loss, which every rank computes whole) is
+taken on model rank 0 only, and the router's is summed over the ranks.
+``_moe_sharded`` is the same dispatch with one controller over a global
+x and a mesh of axis sizes (the tests hold it against the reference).
 
 The routing is a function of the tokens the reference feeds the MLP.
 The serving path pads its hidden states with zero rows (a decode step to
@@ -38,7 +44,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..utils import div, round_up
-from .layers import dense_init, swiglu
+from ..distributed.exchange import grad_on_first, reduce_from
+from .layers import dense_init, part, shared, swiglu
 
 CAPACITY_FACTOR = 1.25
 
@@ -121,16 +128,29 @@ def route(logits: torch.Tensor, E: int, k: int,
 
 
 def _dispatch_compute(x2: torch.Tensor, logits: torch.Tensor, wg, wu, wd,
-                      E: int, k: int, capacity_factor: float):
+                      E: int, k: int, capacity_factor: float, tp=None,
+                      slices: int = 1):
     """Routed-expert output of tokens x2 [T, D] (bf16) given their router
-    logits [T, E]: (out [T, D], aux, routing)."""
+    logits [T, E]: (out [T, D], aux, routing); ``tp`` / ``slices`` as
+    ``_expert_out``'s."""
     r = route(logits, E, k, capacity_factor)
-    return _expert_out(x2, r, wg, wu, wd, E, k), r.aux, r
+    return _expert_out(x2, r, wg, wu, wd, E, k, tp, slices), r.aux, r
 
 
-def _expert_out(x2: torch.Tensor, r: Routing, wg, wu, wd, E: int, k: int):
-    """The experts' output [T, D] of tokens x2 under routing ``r``; with
-    Fe slices of the weights, that slice's partial output."""
+def _hidden(buf: torch.Tensor, wg, wu) -> torch.Tensor:
+    g = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    return torch.nn.functional.silu(g.to(torch.float32)).to(buf.dtype) * u
+
+
+def _expert_out(x2: torch.Tensor, r: Routing, wg, wu, wd, E: int, k: int,
+                tp=None, slices: int = 1):
+    """The experts' output [T, D] of tokens x2 under routing ``r``. Split
+    over Fe (``tp``: the weights are this rank's Fe slice; ``slices``: one
+    controller walks that many Fe slices of whole weights) the down
+    product's f32 partial sums are added in slice (model rank) order and
+    rounded once, as the single-device product rounds, before the gates:
+    every rank gets the whole output."""
     T, D = x2.shape
     C = r.C
     # kept choices write their token into their slot; dropped ones go to a
@@ -139,10 +159,20 @@ def _expert_out(x2: torch.Tensor, r: Routing, wg, wu, wd, E: int, k: int):
     dst = torch.where(r.keep, r.slot, E * C)
     buf.index_copy_(0, dst, x2.repeat_interleave(k, dim=0))
     buf = buf[:E * C].view(E, C, D)
-    g = torch.bmm(buf, wg)
-    u = torch.bmm(buf, wu)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(buf.dtype) * u
-    y = torch.bmm(h, wd).reshape(E * C, D)
+    if tp is None and slices == 1:
+        y = torch.bmm(_hidden(buf, wg, wu), wd)
+    else:
+        f = wg.shape[-1] // slices
+        y = None
+        for j in range(slices):
+            fs = slice(j * f, (j + 1) * f)
+            h = _hidden(buf, wg[..., fs], wu[..., fs])
+            piece = torch.bmm(h.to(torch.float32), wd[:, fs].to(torch.float32))
+            y = piece if y is None else y + piece
+        if tp is not None:
+            y = reduce_from(y, tp)
+        y = y.to(x2.dtype)
+    y = y.reshape(E * C, D)
     valid = r.keep[:, None].to(x2.dtype)
     out = y[r.slot] * valid * r.gate.reshape(-1, 1).to(x2.dtype)
     return out.reshape(T, k, D).sum(dim=1)
@@ -151,11 +181,15 @@ def _expert_out(x2: torch.Tensor, r: Routing, wg, wu, wd, E: int, k: int):
 def _moe_sharded(p: dict, x: torch.Tensor, cfg: ArchConfig,
                  capacity_factor: float, mesh):
     """The reference's ``shard_map`` dispatch with one controller, over a
-    global x [B, S, D]: each block of rows of the data-parallel axes (by
+    global x [B, S, D] and a mesh of axis sizes (the tests hold it against
+    the reference; ranks run one block each through ``moe_apply``, with
+    the same math): each block of rows of the data-parallel axes (by
     ``spec_with_fallback``; one block when B does not divide them) is
     routed alone, with the capacity of its own token count; under a
     'model' axis that divides Fe the expert FFN runs one Fe slice at a
-    time and the slices' partial outputs are added in model order. The
+    time, and the slices' f32 down products are added in model order
+    before the gates (``_expert_out``), where the reference's ``psum``
+    adds bf16 outputs after them: the two differ by that rounding. The
     aux loss is the mean of the blocks' in block order. Returns (routed
     output [B, S, D], aux)."""
     from ..distributed.sharding import _axis_size, dp_axes, spec_with_fallback
@@ -168,20 +202,16 @@ def _moe_sharded(p: dict, x: torch.Tensor, cfg: ArchConfig,
     slices = m if m > 1 and Fe % m == 0 else 1
     x_spec = spec_with_fallback(x.shape, [dp, None, None], mesh)
     n_blk = _axis_size(mesh, dp) if x_spec[0] is not None else 1
-    Bl, f = B // n_blk, Fe // slices
+    Bl = B // n_blk
     x2 = x.reshape(B * S, D)
     outs, auxes = [], []
     for b in range(n_blk):
         xb = x2[b * Bl * S:(b + 1) * Bl * S] if n_blk > 1 else x2
-        r = route(xb.to(torch.float32) @ p["router"], E, k, capacity_factor)
-        out = None
-        for j in range(slices):
-            fs = slice(j * f, (j + 1) * f)
-            part = _expert_out(xb, r, p["w_gate"][..., fs], p["w_up"][..., fs],
-                               p["w_down"][:, fs], E, k)
-            out = part if out is None else out + part
+        out, aux, _ = _dispatch_compute(xb, xb.to(torch.float32) @ p["router"],
+                                        p["w_gate"], p["w_up"], p["w_down"],
+                                        E, k, capacity_factor, slices=slices)
         outs.append(out.view(Bl, S, D))
-        auxes.append(r.aux)
+        auxes.append(aux)
     aux = auxes[0]
     if n_blk > 1:
         for a in auxes[1:]:
@@ -226,26 +256,34 @@ def routing_log(keep_tensors: bool = False):
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
               capacity_factor: float = CAPACITY_FACTOR, *,
-              n_real: int | None = None, site: str = ""):
+              n_real: int | None = None, site: str = "", tp=None):
     """x: [B, S, D] -> (out [B, S, D], aux loss).
 
     ``n_real``: only each batch row's first ``n_real`` positions are
     tokens (the rest are the caller's zero padding): they alone are
     routed, token-major over [B, n_real], and the padding's routed output
     is zero. The router and the shared experts run over every row.
-    ``site`` labels the call in the routing log."""
+    ``site`` labels the call in the routing log. Under a mesh of ranks
+    (training) a rank's x is its data block, routed alone; under ``tp``
+    every rank routes the whole block, computes its Fe slice of the
+    experts and gets the whole output (module docstring)."""
     B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.moe_topk
+    E, k, Fe = cfg.n_experts, cfg.moe_topk, cfg.d_ff_expert
     x2 = x.reshape(B * S, D)
-    logits = x2.to(torch.float32) @ p["router"]  # [B·S, E], every row
     n = S if n_real is None else n_real
+    logits = x2.to(torch.float32) @ shared(p["router"], tp)  # [B·S, E], every row
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if tp is not None:  # every rank routes the whole block: its Fe slice
+        logits = grad_on_first(logits, tp)
+        lo, hi = tp.range(Fe)
+        wg, wu = part(wg, -1, Fe, lo, hi, tp), part(wu, -1, Fe, lo, hi, tp)
+        wd = part(wd, -2, Fe, lo, hi, tp)
     if n < S:
         xr = x[:, :n].reshape(B * n, D)
         lr = logits.view(B, S, E)[:, :n].reshape(B * n, E)
     else:
         xr, lr = x2, logits
-    routed, aux, r = _dispatch_compute(xr, lr, p["w_gate"], p["w_up"],
-                                       p["w_down"], E, k, capacity_factor)
+    routed, aux, r = _dispatch_compute(xr, lr, wg, wu, wd, E, k, capacity_factor, tp)
     if _LOG is not None:
         _LOG.append(RoutedCall(
             site, B * n, r.C, (~r.keep).view(-1, k).sum(1, dtype=torch.int32),
@@ -257,5 +295,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
         out = routed.view(B, S, D)
     if cfg.n_shared_experts:  # shared experts: a plain SwiGLU over every row
         sp = p["shared"]
-        out = out + swiglu(x2, sp["w_gate"], sp["w_up"], sp["w_down"]).view(B, S, D)
+        Fs = cfg.n_shared_experts * cfg.d_ff_expert
+        y = swiglu(x2, sp["w_gate"], sp["w_up"], sp["w_down"], tp, Fs)
+        if tp is not None:  # the F slices' f32 partial sums, added and rounded once
+            y = reduce_from(y, tp).to(x.dtype)
+        out = out + y.view(B, S, D)
     return out, aux

@@ -93,10 +93,16 @@ class ModelApi:
 
 def _make_loss(forward_train):
     def loss_fn(params, cfg: ArchConfig, batch):
+        from ..distributed.sharding import model_lanes
+
         logits, aux = forward_train(params, cfg, batch)
         if cfg.input_mode == "tokens_patches":
             logits = logits[:, cfg.n_patches:]  # loss on the text positions
-        return softmax_xent(logits, batch["labels"]) + AUX_WEIGHT * aux
+        # the reference pins the f32 logits to (batch, seq='model'); under
+        # a 'model' line here they are each rank's vocab slice
+        # (layers.logits_tp), and the cross-entropy reads them so
+        tp = model_lanes(logits.shape[1])
+        return softmax_xent(logits, batch["labels"], tp, cfg.vocab) + AUX_WEIGHT * aux
 
     return loss_fn
 

@@ -47,15 +47,25 @@ from ..core.cache import (
 )
 from ..kernels import dense_decode_attention, packed_decode_attention
 from ..utils import round_up, tree_unbind
+from ..distributed.exchange import gather_along
 from .layers import (
     PREFILL_ROWS,
     apply_rope,
     dense_init,
+    embed_tokens,
+    enter,
     flash_attention,
+    head_block,
+    leave,
+    logits_tp,
     mlp_apply,
+    part,
     qkv_proj,
     resume_attention,
     rmsnorm,
+    row_parallel,
+    stream_param,
+    swiglu,
 )
 from .layers import mm_slabs as _mm
 
@@ -178,10 +188,13 @@ def _causal_conv_seq(w, x, x_hist):
 
 def _rg_lru_seq(p: dict, x, h0, rows):
     """The gated LRU over x [B, T, R], a sequential scan. Returns
-    (y f32 [B, T, R], h_final [B, R])."""
+    (y f32 [B, T, R], h_final [B, R]). Where ``p``'s gate weights read
+    the whole width and ``x`` is a tensor-parallel rank's channel slice,
+    the gates read ``p["x_all"]`` (the slices all-gathered)."""
     xf = x.to(torch.float32)
-    r = torch.sigmoid(_mm(xf, p["lru_wa"], rows))
-    i = torch.sigmoid(_mm(xf, p["lru_wx"], rows))
+    xa = p.get("x_all", xf)
+    r = torch.sigmoid(_mm(xa, p["lru_wa"], rows))
+    i = torch.sigmoid(_mm(xa, p["lru_wx"], rows))
     a = torch.exp(-LRU_C * torch.nn.functional.softplus(p["lru_lambda"]) * r)
     gx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
     ys, h = [], h0
@@ -193,18 +206,48 @@ def _rg_lru_seq(p: dict, x, h0, rows):
     return torch.stack(ys, dim=1), h
 
 
-def _rec_block_seq(p: dict, h, conv_hist, h0, rows):
+def _rec_block_seq(p: dict, h, conv_hist, h0, rows, tp=None, F: int = 0):
     """A whole recurrent residual block over a sequence. Returns (h, the
-    conv history, the LRU state)."""
-    x = rmsnorm(h, p["ln"])
-    y1 = _mm(x, p["w_in"], rows)
-    y2 = torch.nn.functional.gelu(_mm(x, p["w_gate_branch"], rows).to(torch.float32),
+    conv history, the LRU state). Under ``tp`` (training: ``rows`` None,
+    zero states) ``w_in``, ``w_gate_branch``, the conv, the LRU's gates
+    and its scan run over this rank's slice of the LRU width (the whole
+    width when it does not split over the ranks; the gates read every
+    rank's channels, all-gathered), ``w_out`` and the MLP's ``w_down``
+    are row-parallel (the MLP over ``F`` units), and each output goes
+    back onto the stream."""
+    R = p["lru_lambda"].shape[-1]
+    x = enter(rmsnorm(h, stream_param(p["ln"], tp)), tp)
+    w_in, w_gb, conv_w, lru = p["w_in"], p["w_gate_branch"], p["conv_w"], p
+    lo, hi = 0, R
+    if tp is not None:
+        if R % tp.size == 0:
+            lo, hi = tp.range(R)
+        w_in, w_gb = part(w_in, -1, R, lo, hi, tp), part(w_gb, -1, R, lo, hi, tp)
+        conv_w = part(conv_w, -1, R, lo, hi, tp)
+        lru = {name: part(p[name], -1, R, lo, hi, tp)
+               for name in ("lru_wa", "lru_wx", "lru_lambda")}
+        conv_hist, h0 = conv_hist[..., lo:hi], h0[..., lo:hi]
+    y1 = _mm(x, w_in, rows)
+    y2 = torch.nn.functional.gelu(_mm(x, w_gb, rows).to(torch.float32),
                                   approximate="tanh").to(h.dtype)
-    y1, hist = _causal_conv_seq(p["conv_w"], y1, conv_hist)
-    y1, h_fin = _rg_lru_seq(p, y1, h0, rows)
-    h = h + _mm(y1.to(h.dtype) * y2, p["w_out"], rows)
-    h = h + _mlp(p["mlp"], rmsnorm(h, p["mlp_ln"]), rows)
-    return h, hist, h_fin
+    y1, hist = _causal_conv_seq(conv_w, y1, conv_hist)
+    if tp is not None and hi - lo < R:
+        lru = dict(lru, x_all=gather_along(y1.to(torch.float32), -1, tp))
+    y1, h_fin = _rg_lru_seq(lru, y1, h0, rows)
+    if tp is None:
+        h = h + _mm(y1.to(h.dtype) * y2, p["w_out"], rows)
+        h = h + _mlp(p["mlp"], rmsnorm(h, p["mlp_ln"]), rows)
+        return h, hist, h_fin
+    h = h + leave(row_parallel(y1.to(h.dtype) * y2, lo, p["w_out"], R, tp), tp, h.dtype)
+    return _mlp_tp(p, h, tp, F), hist, h_fin
+
+
+def _mlp_tp(p: dict, h, tp, F: int):
+    """h plus the block's tensor-parallel SwiGLU over ``F`` units
+    (``mlp_ln`` first)."""
+    mp = p["mlp"]
+    x = enter(rmsnorm(h, stream_param(p["mlp_ln"], tp)), tp)
+    return h + leave(swiglu(x, mp["w_gate"], mp["w_up"], mp["w_down"], tp, F), tp, h.dtype)
 
 
 def _qkv_seq(p: dict, x, cfg: ArchConfig, positions, rows):
@@ -241,12 +284,19 @@ def _prefill_attention(q, k, v, window: int):
     return torch.cat(out, dim=2)
 
 
-def _attn_out(p: dict, h, attn, rows):
-    """The attention block's output projection, residual and MLP."""
+def _attn_out(p: dict, h, attn, rows, cfg: ArchConfig | None = None, tp=None):
+    """The attention block's output projection, residual and MLP; under
+    ``tp`` ``attn`` holds this rank's ``head_block`` and ``wo`` is
+    row-parallel."""
     B, Hq, T, hd = attn.shape
     attn = attn.transpose(1, 2).reshape(B, T, Hq * hd)
-    h = h + _mm(attn.to(h.dtype), p["attn"]["wo"], rows)
-    return h + _mlp(p["mlp"], rmsnorm(h, p["mlp_ln"]), rows)
+    if tp is None:
+        h = h + _mm(attn.to(h.dtype), p["attn"]["wo"], rows)
+        return h + _mlp(p["mlp"], rmsnorm(h, p["mlp_ln"]), rows)
+    y_lo = head_block(cfg.n_heads, cfg.n_kv_heads, tp)[0] * hd
+    h = h + leave(row_parallel(attn.to(h.dtype), y_lo, p["attn"]["wo"],
+                               cfg.n_heads * hd, tp), tp, h.dtype)
+    return _mlp_tp(p, h, tp, cfg.d_ff)
 
 
 def _zeros_states(cfg: ArchConfig, B: int, device):
@@ -270,28 +320,42 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict):
     zero aux loss): each group (two recurrent blocks, then the local
     attention block through ``flash_attention``) under
     ``torch.utils.checkpoint``, then the tail blocks, as the reference.
-    The stacked leaves are unbound once (``utils.tree_unbind``)."""
+    The stacked leaves are unbound once (``utils.tree_unbind``). Under a
+    'model' line of ranks (``distributed.sharding.model_lanes``)
+    ``params`` are this rank's blocks, the stream is sequence-sharded
+    where the line's size divides T, and the logits are this rank's vocab
+    slice (``layers.logits_tp``)."""
+    from ..distributed.sharding import model_lanes
+
     tokens = batch["tokens"].to(torch.int64)
     B, T = tokens.shape
-    h = params["embed"][tokens]
+    tp = model_lanes(T)
+    h = leave(embed_tokens(params["embed"], tokens, cfg.vocab, tp), tp,
+              params["embed"].dtype)
     positions = torch.arange(T, device=h.device)
     conv0, h0 = _zeros_states(cfg, B, h.device)
 
     def group(hh, gp):
         for rp in tree_unbind(gp["rec"]):
-            hh = _rec_block_seq(rp, hh, conv0, h0, None)[0]
+            hh = _rec_block_seq(rp, hh, conv0, h0, None, tp, cfg.d_ff)[0]
         p = gp["attn"]
-        q, k, v = _qkv_seq(p["attn"], rmsnorm(hh, p["ln"]), cfg, positions, None)
+        x = enter(rmsnorm(hh, stream_param(p["ln"], tp)), tp)
+        if tp is None:
+            q, k, v = _qkv_seq(p["attn"], x, cfg, positions, None)
+        else:
+            q, k, v = qkv_proj(p["attn"], x, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                               positions, cfg.rope_theta, tp=tp)
         attn = flash_attention(q, k, v, causal=True, window=cfg.window)
-        return _attn_out(p, hh, attn, None)
+        return _attn_out(p, hh, attn, None, cfg, tp)
 
     for gp in tree_unbind(params["groups"]):
         h = checkpoint(group, h, gp, use_reentrant=False)
     if params["tail"] is not None:
-        for tp in tree_unbind(params["tail"]):
-            h = _rec_block_seq(tp, h, conv0, h0, None)[0]
-    logits = (rmsnorm(h, params["final_ln"]) @ params["head"]).to(torch.float32)
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+        for tp_ in tree_unbind(params["tail"]):
+            h = _rec_block_seq(tp_, h, conv0, h0, None, tp, cfg.d_ff)[0]
+    hn = rmsnorm(h, stream_param(params["final_ln"], tp))
+    return logits_tp(hn, params["head"], cfg.vocab, tp), \
+        torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _window_cache(cfg: ArchConfig, pack_cfg: PackKVConfig, B: int, device):

@@ -32,7 +32,21 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..utils import tree_unbind
-from .layers import PREFILL_ROWS, dense_init, rmsnorm
+from ..distributed.exchange import gather_along, grad_on_first
+from .layers import (
+    PREFILL_ROWS,
+    dense_init,
+    embed_tokens,
+    enter,
+    leave,
+    logits_tp,
+    part,
+    partial_mm,
+    rmsnorm,
+    row_parallel,
+    shared,
+    stream_param,
+)
 from .layers import mm_slabs as _mm
 
 LORA_RANK = 64
@@ -168,45 +182,89 @@ def _wkv_seq(r, k, v, w, u, S):
     return torch.stack(ys, dim=1), S
 
 
-def _time_mix_seq(p: dict, cfg: ArchConfig, x, x_prev, S0, rows):
+def _time_mix_seq(p: dict, cfg: ArchConfig, x, x_prev, S0, rows, tp=None):
     """Time mix over [B, T, D]; returns (out [B, T, D], S_final, last x).
 
     The WKV is chunked over the CHUNK_C-aligned bulk and sequential over
     the sub-chunk tail, so running [0, Tb) then [Tb, T) from the carried
-    state replays the same chunks (the reference's mixed path)."""
+    state replays the same chunks (the reference's mixed path).
+
+    Under ``tp`` (training: ``rows`` None, ``x`` the whole sequence) r, k,
+    v, g and the decay run column-parallel over this rank's WKV heads
+    (every head when the heads do not split over the ranks), ``ln_x``
+    normalizes the whole width (the heads' outputs all-gathered) and
+    ``wo`` is row-parallel: the output is this rank's partial sum."""
     B, T, D = x.shape
     H, N = _heads(cfg)
     xs = torch.cat([x_prev[:, None], x[:, :-1]], dim=1)  # shifted
-    mu = p["mu"]
+    mu = shared(p["mu"], tp)
     mix = lambda i: x + mu[i] * (xs - x)
     xr, xk, xv, xw, xg = (mix(i) for i in range(5))
     f32 = torch.float32
-    r = _mm(xr, p["wr"], rows).reshape(B, T, H, N).to(f32)
-    k = _mm(xk, p["wk"], rows).reshape(B, T, H, N).to(f32)
-    v = _mm(xv, p["wv"], rows).reshape(B, T, H, N).to(f32)
-    g = torch.nn.functional.silu(_mm(xg, p["wg"], rows).to(f32))
-    w = _decay(p, xw, rows).reshape(B, T, H, N)
+    hlo, hhi = 0, H
+    pw = p
+    if tp is not None:
+        split = H % tp.size == 0
+        if split:
+            hlo, hhi = tp.range(H)
+        lo, hi = hlo * N, hhi * N
+        pw = {name: part(p[name], -1, D, lo, hi, tp) for name in ("wr", "wk", "wv", "wg")}
+        pw.update(wA=shared(p["wA"], tp), wB=part(p["wB"], -1, D, lo, hi, tp),
+                  w0=part(p["w0"], -1, D, lo, hi, tp), u=part(p["u"], 0, H, hlo, hhi, tp))
+    Hl = hhi - hlo
+    r = _mm(xr, pw["wr"], rows).reshape(B, T, Hl, N).to(f32)
+    k = _mm(xk, pw["wk"], rows).reshape(B, T, Hl, N).to(f32)
+    v = _mm(xv, pw["wv"], rows).reshape(B, T, Hl, N).to(f32)
+    g = torch.nn.functional.silu(_mm(xg, pw["wg"], rows).to(f32))
+    w = _decay(pw, xw, rows).reshape(B, T, Hl, N)
     Tb = (T // CHUNK_C) * CHUNK_C
     parts, S = [], S0
     if Tb:
-        y, S = _wkv_chunked(r[:, :Tb], k[:, :Tb], v[:, :Tb], w[:, :Tb], p["u"], S)
+        y, S = _wkv_chunked(r[:, :Tb], k[:, :Tb], v[:, :Tb], w[:, :Tb], pw["u"], S)
         parts.append(y)
     if Tb < T:
-        y, S = _wkv_seq(r[:, Tb:], k[:, Tb:], v[:, Tb:], w[:, Tb:], p["u"], S)
+        y, S = _wkv_seq(r[:, Tb:], k[:, Tb:], v[:, Tb:], w[:, Tb:], pw["u"], S)
         parts.append(y)
-    y = torch.cat(parts, dim=1).reshape(B, T, D)
-    y = rmsnorm(y.to(x.dtype), p["ln_x"]) * g.to(x.dtype)
-    return _mm(y, p["wo"], rows), S, x[:, -1]
+    y = torch.cat(parts, dim=1).reshape(B, T, Hl * N)
+    if tp is None:
+        y = rmsnorm(y.to(x.dtype), p["ln_x"]) * g.to(x.dtype)
+        return _mm(y, p["wo"], rows), S, x[:, -1]
+    y = y.to(x.dtype)
+    if Hl < H:
+        y = gather_along(y, -1, tp)
+    y = rmsnorm(y, shared(p["ln_x"], tp))[..., hlo * N:hhi * N] * g.to(x.dtype)
+    return row_parallel(y, hlo * N, p["wo"], D, tp), S, x[:, -1]
 
 
-def _channel_mix_seq(p: dict, x, x_prev, rows):
+def _channel_mix_seq(p: dict, x, x_prev, rows, tp=None, F: int = 0):
+    """Channel mix over [B, T, D]. Under ``tp`` (training, ``x`` the whole
+    sequence): ``cm_wk`` column-parallel and ``cm_wv`` row-parallel over
+    this rank's slice of the ``F`` units, their partial sums put back onto
+    the stream (rounded once, as the single-device product); the gate
+    ``cm_wr`` reads the whole leaf (gathered) on the stream's positions
+    only, and multiplies there, so the output is already the stream (the
+    gate's gradient is kept on model rank 0 where the stream is whole on
+    every rank)."""
     xs = torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
     xk = x + 0.5 * (xs - x)
     xr = x + 0.5 * (xs - x)
     f32 = torch.float32
-    kk = torch.square(torch.relu(_mm(xk, p["cm_wk"], rows).to(f32))).to(x.dtype)
-    gate = torch.sigmoid(_mm(xr, p["cm_wr"], rows).to(f32)).to(x.dtype)
-    return gate * _mm(kk, p["cm_wv"], rows), x[:, -1]
+    wk, wv, wr = p["cm_wk"], p["cm_wv"], p["cm_wr"]
+    if tp is not None:
+        B, T, D = x.shape
+        flo, fhi = tp.range(F)
+        wk, wv = part(wk, -1, F, flo, fhi, tp), part(wv, -2, F, flo, fhi, tp)
+        wr = part(wr, -1, D, 0, D, tp)
+        if tp.seq:
+            n = T // tp.size
+            xr = xr[:, tp.index * n:(tp.index + 1) * n]
+    kk = torch.square(torch.relu(_mm(xk, wk, rows).to(f32))).to(x.dtype)
+    gate = torch.sigmoid(_mm(xr, wr, rows).to(f32)).to(x.dtype)
+    if tp is None:
+        return gate * _mm(kk, wv, rows), x[:, -1]
+    if not tp.seq:
+        gate = grad_on_first(gate, tp)
+    return gate * leave(partial_mm(kk, wv), tp, x.dtype), x[:, -1]
 
 
 def forward_train(params: dict, cfg: ArchConfig, batch: dict):
@@ -214,23 +272,33 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict):
     zero aux loss): the mixed chunked + sequential WKV of ``_time_mix_seq``
     with one product over all positions (``rows=None``), each layer under
     ``torch.utils.checkpoint``, as the reference. The stacked leaves are
-    unbound once (``utils.tree_unbind``)."""
+    unbound once (``utils.tree_unbind``). Under a 'model' line of ranks
+    (``distributed.sharding.model_lanes``) ``params`` are this rank's
+    blocks, the stream is sequence-sharded where the line's size divides
+    T, and the logits are this rank's vocab slice (``layers.logits_tp``)."""
+    from ..distributed.sharding import model_lanes
+
     tokens = batch["tokens"].to(torch.int64)
-    B = tokens.shape[0]
+    B, T = tokens.shape
     H, N = _heads(cfg)
-    h = params["embed"][tokens]
+    tp = model_lanes(T)
+    h = leave(embed_tokens(params["embed"], tokens, cfg.vocab, tp), tp,
+              params["embed"].dtype)
+    Hl = H if tp is None or H % tp.size else H // tp.size
 
     def block(hh, p):
         z = torch.zeros((B, cfg.d_model), dtype=hh.dtype, device=hh.device)
-        S0 = torch.zeros((B, H, N, N), dtype=torch.float32, device=hh.device)
-        y = _time_mix_seq(p, cfg, rmsnorm(hh, p["ln1"]), z, S0, None)[0]
-        hh = hh + y
-        return hh + _channel_mix_seq(p, rmsnorm(hh, p["ln2"]), z, None)[0]
+        S0 = torch.zeros((B, Hl, N, N), dtype=torch.float32, device=hh.device)
+        x = enter(rmsnorm(hh, stream_param(p["ln1"], tp)), tp)
+        hh = hh + leave(_time_mix_seq(p, cfg, x, z, S0, None, tp)[0], tp, hh.dtype)
+        x = enter(rmsnorm(hh, stream_param(p["ln2"], tp)), tp)
+        return hh + _channel_mix_seq(p, x, z, None, tp, cfg.d_ff)[0]
 
     for p in tree_unbind(params["layers"]):
         h = checkpoint(block, h, p, use_reentrant=False)
-    logits = (rmsnorm(h, params["final_ln"]) @ params["head"]).to(torch.float32)
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    hn = rmsnorm(h, stream_param(params["final_ln"], tp))
+    return logits_tp(hn, params["head"], cfg.vocab, tp), \
+        torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def alloc_state(cfg: ArchConfig, batch: int, device="cuda") -> RwkvState:

@@ -75,11 +75,20 @@ from .layers import (
     attention_norm_init,
     ctx_attention,
     dense_init,
+    embed_tokens,
+    enter,
     flash_attention,
+    head_block,
+    leave,
+    logits_tp,
     mlp_apply,
     qkv_proj,
+    reduce_from,
     resume_attention,
     rmsnorm,
+    row_parallel,
+    stream_param,
+    to_stream,
 )
 from .moe import moe_apply, moe_init
 
@@ -98,7 +107,7 @@ _MLP_SHAPES = {  # the SwiGLU of every family but moe
     ("mlp", "w_up"): lambda c: (c.d_model, c.d_ff),
     ("mlp", "w_down"): lambda c: (c.d_ff, c.d_model),
 }
-FAMILIES = ("dense", "moe", "vlm", "encoder")  # the families ported so far
+FAMILIES = ("dense", "moe", "vlm", "encoder")  # the families of this module
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -154,43 +163,62 @@ def _layer(params: dict, i: int) -> dict:
 
 
 def _apply_mlp(cfg: ArchConfig, p: dict, h: torch.Tensor, site: str,
-               n_real: int | None = None):
+               n_real: int | None = None, tp=None):
     """The MLP block's (output, aux loss) for hidden states ``h``
     (normalized by ``ln2`` first): SwiGLU and an aux of 0.0 (a Python
     number, so serving launches nothing for it), or the MoE routing only
     each batch row's first ``n_real`` positions (the rest are padding) and
-    its load-balancing loss."""
-    x = rmsnorm(h, p["ln2"])
-    if cfg.family == "moe":
-        return moe_apply(p["mlp"], x, cfg, n_real=n_real, site=site)
-    return mlp_apply(p["mlp"], x), 0.0
+    its load-balancing loss. Under ``tp`` (a ``ModelGroup``) the block
+    reads the whole sequence and its output goes back onto the stream
+    (``layers.enter`` / ``leave``)."""
+    x = enter(rmsnorm(h, stream_param(p["ln2"], tp)), tp)
+    if cfg.family == "moe":  # under tp every rank's output is whole
+        out, aux = moe_apply(p["mlp"], x, cfg, n_real=n_real, site=site, tp=tp)
+        return to_stream(out, tp), aux
+    return leave(mlp_apply(p["mlp"], x, tp, cfg.d_ff), tp, h.dtype), 0.0
 
 
-def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+def _seq_len(cfg: ArchConfig, batch: dict) -> int:
+    """Positions of a batch's hidden states (patches before tokens)."""
+    if cfg.input_mode == "frames":
+        return batch["frames"].shape[1]
+    n = batch["tokens"].shape[1]
+    return n + batch["patches"].shape[1] if cfg.input_mode == "tokens_patches" else n
+
+
+def _embed_inputs(params: dict, cfg: ArchConfig, batch: dict, tp=None) -> torch.Tensor:
     """Hidden states [B, S, D] of a batch by its input mode: token
     embeddings, the frames themselves (audio stub), or the patch
-    embeddings followed by the token embeddings (VLM stub)."""
+    embeddings followed by the token embeddings (VLM stub). Under ``tp``
+    the stream (``layers.to_stream``), from vocab-parallel embeddings."""
     if cfg.input_mode == "tokens":
-        return params["embed"][batch["tokens"].to(torch.int64)]
+        return leave(embed_tokens(params["embed"], batch["tokens"], cfg.vocab, tp), tp,
+                     params["embed"].dtype)
     if cfg.input_mode == "frames":
-        return batch["frames"].to(torch.bfloat16)
+        return to_stream(batch["frames"].to(torch.bfloat16), tp)
     if cfg.input_mode == "tokens_patches":
-        tok = params["embed"][batch["tokens"].to(torch.int64)]
-        return torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
+        tok = embed_tokens(params["embed"], batch["tokens"], cfg.vocab, tp)
+        if tp is not None:
+            tok = reduce_from(tok, tp)
+        return to_stream(torch.cat([batch["patches"].to(tok.dtype), tok], dim=1), tp)
     raise ValueError(cfg.input_mode)
 
 
-def _qkv(p: dict, h: torch.Tensor, cfg: ArchConfig, positions):
+def _qkv(p: dict, h: torch.Tensor, cfg: ArchConfig, positions, tp=None):
     """One layer's q, k, v of the hidden states ``h`` (``layers.qkv_proj``
-    with the config's heads, RoPE and qk-norm)."""
-    return qkv_proj(p["attn"], rmsnorm(h, p["ln1"]), cfg.n_heads,
-                    cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
-                    qk_norm=cfg.qk_norm, use_rope=cfg.use_rope)
+    with the config's heads, RoPE and qk-norm); under ``tp`` the heads of
+    this rank's ``head_block`` over the whole sequence."""
+    return qkv_proj(p["attn"], enter(rmsnorm(h, stream_param(p["ln1"], tp)), tp),
+                    cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta,
+                    qk_norm=cfg.qk_norm, use_rope=cfg.use_rope, tp=tp)
 
 
-def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Every position's logits: [B, S, D] -> f32 [B, S, V]."""
-    return (rmsnorm(h, params["final_ln"]) @ params["head"]).to(torch.float32)
+def _logits(params: dict, h: torch.Tensor, cfg: ArchConfig | None = None,
+            tp=None) -> torch.Tensor:
+    """Every position's logits: [B, S, D] -> f32 [B, S, V]; under ``tp``
+    this rank's vocab slice (``layers.logits_tp``)."""
+    hn = rmsnorm(h, stream_param(params["final_ln"], tp))
+    return logits_tp(hn, params["head"], 0 if cfg is None else cfg.vocab, tp)
 
 
 def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -198,14 +226,18 @@ def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
     return _logits(params, h[:, -1:])[:, 0]
 
 
-def _block_train(cfg: ArchConfig, p: dict, h: torch.Tensor, positions):
-    """One layer of the training forward: (h, the MLP's aux loss)."""
-    B, S, _ = h.shape
-    q, k, v = _qkv(p, h, cfg, positions)
+def _block_train(cfg: ArchConfig, p: dict, h: torch.Tensor, positions, tp=None):
+    """One layer of the training forward: (h, the MLP's aux loss). Under
+    ``tp``: column-parallel q, k, v over this rank's heads, attention over
+    them, the row-parallel ``wo`` and the MLP, each back onto the stream."""
+    q, k, v = _qkv(p, h, cfg, positions, tp)
     attn = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
-    attn = attn.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    h = h + attn.to(h.dtype) @ p["attn"]["wo"]
-    m, aux = _apply_mlp(cfg, p, h, "train")
+    B, _, S, _ = attn.shape
+    attn = attn.transpose(1, 2).reshape(B, S, -1)
+    y_lo = 0 if tp is None else head_block(cfg.n_heads, cfg.n_kv_heads, tp)[0] * cfg.hd
+    h = h + leave(row_parallel(attn.to(h.dtype), y_lo, p["attn"]["wo"],
+                               cfg.n_heads * cfg.hd, tp), tp, h.dtype)
+    m, aux = _apply_mlp(cfg, p, h, "train", tp=tp)
     return h + m, aux
 
 
@@ -217,14 +249,24 @@ def forward_train(params: dict, cfg: ArchConfig, batch: dict):
     per-layer remat): the backward recomputes one layer's activations at a
     time. The stacked leaves are unbound once (``tree_unbind``), so their
     backward is one ``stack`` a leaf; a per-layer ``select`` would zero a
-    whole stack's gradient once a layer."""
-    h = _embed_inputs(params, cfg, batch)
-    positions = torch.arange(h.shape[1], device=h.device)
+    whole stack's gradient once a layer.
+
+    Under an active mesh whose 'model' axis is m > 1 (tensor parallelism,
+    ``distributed.sharding.model_lanes``) ``params`` are this rank's
+    blocks, the residual stream between layers is sharded by sequence
+    over the 'model' ranks where m divides S (the reference's pin) and
+    whole on every rank where it does not, and the logits are this rank's
+    vocab slice [B, S, V_r] (``registry``'s loss reads them so)."""
+    from ..distributed.sharding import model_lanes
+
+    tp = model_lanes(_seq_len(cfg, batch))
+    h = _embed_inputs(params, cfg, batch, tp)
+    positions = torch.arange(_seq_len(cfg, batch), device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p in tree_unbind(params["layers"]):
-        h, a = checkpoint(_block_train, cfg, p, h, positions, use_reentrant=False)
+        h, a = checkpoint(_block_train, cfg, p, h, positions, tp, use_reentrant=False)
         aux = aux + a
-    return _logits(params, h), div(aux, cfg.n_layers)
+    return _logits(params, h, cfg, tp), div(aux, cfg.n_layers)
 
 
 def encode(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:

@@ -93,12 +93,26 @@ def init_opt_state(params) -> OptState:
                                      device=leaves[0].device))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, sharded: list | None = None, tp=None) -> torch.Tensor:
     """sqrt of the sum, leaf by leaf in leaf order, of each leaf's f32 sum
-    of squares."""
+    of squares. Under tensor parallelism (``tp`` a
+    ``distributed.exchange.ModelGroup``; ``tree`` this rank's blocks,
+    ``sharded`` a flag a leaf) a sharded leaf's sum is its blocks' sums
+    added over the 'model' ranks in rank order, and a replicated leaf is
+    counted once: every rank gets the same norm."""
+    squares = [torch.sum(torch.square(x.to(F32))) for x in tree_flatten(tree)[0]]
+    if tp is not None:
+        from ..distributed.exchange import all_gather
+
+        ranks = all_gather(torch.stack(squares), tp.group, tp.size)
+        for i, split in enumerate(sharded):
+            if split:
+                sq = torch.zeros((), dtype=F32, device=squares[i].device)
+                for r in ranks:
+                    sq = sq + r[i]
+                squares[i] = sq
     total = None
-    for x in tree_flatten(tree)[0]:
-        sq = torch.sum(torch.square(x.to(F32)))
+    for sq in squares:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

@@ -24,14 +24,22 @@ that does not divide the axes is replicated: every rank runs all of it
 and nothing is exchanged.
 
 ``accum_pspecs`` (the ZeRO-1 moment specs of ``opt_state_specs``): each
-rank holds only its 'data' slice of ``mu`` / ``nu`` (``shard_opt_state``;
-``gather_opt_state`` makes them whole again), updates that slice of the
-parameters with the global norm of the full reduced gradients, and
-gathers the parameters. The update is elementwise, so this equals the
-replicated update bitwise. ``param_pspecs`` pin gradients to the 'model'
-axis in the reference; a 'model' axis above 1 is tensor parallelism,
-which this step refuses, as it refuses ``param_pspecs`` (ROADMAP item
-16c).
+rank holds only its 'data' slice of ``mu`` / ``nu`` (the moments of
+``sharding.train_state_specs``, cut by ``shard_tree`` and made whole again
+by ``gather_tree``), updates that slice of the parameters with the global
+norm of the full reduced gradients, and gathers the parameters. The
+update is elementwise, so this equals the replicated update bitwise.
+
+Tensor parallelism: under a mesh whose 'model' axis is m > 1, ``params``
+are this rank's blocks (``sharding.train_state_specs``: each leaf the
+rule splits over 'model' is held as 1/m of it) and the forwards split their
+work over the rank's 'model' line (``models/layers.py``), so a rank's
+gradients are its blocks' gradients: holding them is the reference's
+``param_pspecs`` pin, which is accepted. The ranks that share a 'model'
+coordinate add their gradients as above; the global norm adds each
+sharded leaf's sum of squares over the 'model' line in rank order and
+counts a replicated leaf once (``optimizer.global_norm``); under ZeRO-1
+the moments are the 'data' slices of the 'model' blocks.
 
 On the GPU, ranks that share one card exchange through gloo, which gets
 host copies (``distributed.exchange``): an f32 add gives the same bits
@@ -45,7 +53,7 @@ from ..configs.base import ArchConfig
 from ..distributed import sharding
 from ..distributed.exchange import all_gather, sum_in_rank_order
 from ..models.registry import ModelApi
-from ..utils import div, tree_flatten
+from ..utils import MetaGenerator, div, tree_flatten
 from .optimizer import (
     F32,
     OptConfig,
@@ -128,7 +136,7 @@ def _moment_specs(accum_pspecs, params) -> list:
 
 
 def _data_dim(spec) -> int | None:
-    return next((i for i, a in enumerate(spec) if a == "data"), None)
+    return next((i for i, a in enumerate(spec) if "data" in sharding._axes(a)), None)
 
 
 def _local(x: torch.Tensor, d: int | None, mesh) -> torch.Tensor:
@@ -139,37 +147,18 @@ def _local(x: torch.Tensor, d: int | None, mesh) -> torch.Tensor:
     return x.narrow(d, mesh.data_index * n, n)
 
 
-def shard_opt_state(opt_state: OptState, accum_pspecs, mesh) -> OptState:
-    """Full moments -> this rank's 'data' slices (contiguous copies) by
-    the ZeRO-1 specs; leaves with no 'data' dim stay whole."""
-    leaves, treedef = tree_flatten(opt_state.mu)
-    dims = [_data_dim(s) for s in _moment_specs(accum_pspecs, opt_state.mu)]
-    cut = lambda tree: treedef.unflatten(
-        [_local(x, d, mesh).contiguous() for x, d in zip(tree_flatten(tree)[0], dims)])
-    return OptState(mu=cut(opt_state.mu), nu=cut(opt_state.nu), step=opt_state.step)
-
-
 def _gather_dim(x: torch.Tensor, d: int | None, mesh) -> torch.Tensor:
     if d is None or mesh.data_size == 1:
         return x
     return torch.cat(all_gather(x, mesh.data_group, mesh.data_size), dim=d)
 
 
-def gather_opt_state(opt_state: OptState, accum_pspecs, params, mesh) -> OptState:
-    """This rank's ZeRO-1 slices -> full moments (every rank of a 'data'
-    line takes part), as a single process holds them."""
-    dims = [_data_dim(s) for s in _moment_specs(accum_pspecs, params)]
-    treedef = tree_flatten(params)[1]
-    whole = lambda tree: treedef.unflatten(
-        [_gather_dim(x, d, mesh) for x, d in zip(tree_flatten(tree)[0], dims)])
-    return OptState(mu=whole(opt_state.mu), nu=whole(opt_state.nu), step=opt_state.step)
-
-
-def _zero1_update(grads: list, opt_state: OptState, params, opt_cfg, dims, mesh):
+def _zero1_update(grads: list, opt_state: OptState, params, opt_cfg, dims, mesh,
+                  gnorm):
     """AdamW on this rank's 'data' slices, the clip from the full
-    gradients' norm; then every sliced parameter gathered whole."""
+    gradients' norm ``gnorm``; then every sliced parameter gathered
+    whole."""
     leaves, treedef = tree_flatten(params)
-    gnorm = global_norm(grads)
     p_loc = [_local(p, d, mesh).contiguous() if d is not None else p
              for p, d in zip(leaves, dims)]
     g_loc = [_local(g, d, mesh).contiguous() if d is not None else g
@@ -189,29 +178,36 @@ def _zero1_update(grads: list, opt_state: OptState, params, opt_cfg, dims, mesh)
 # ---------------------------------------------------------------------------
 
 
+def _sharded_flags(api: ModelApi, cfg: ArchConfig, mesh, param_pspecs) -> list[bool]:
+    """Whether each parameter leaf (leaf order) is split over 'model': by
+    ``param_pspecs``, else by the rule over the config's full shapes (an
+    init on the meta device: nothing is allocated)."""
+    full = api.init(MetaGenerator(), cfg)
+    specs = sharding.param_specs(full, mesh) if param_pspecs is None else param_pspecs
+    return [any("model" in sharding._axes(a) for a in spec)
+            for spec in sharding.spec_leaves(specs, tree_flatten(full)[1])]
+
+
 def make_train_step(api: ModelApi, cfg: ArchConfig, opt_cfg: OptConfig,
                     grad_accum: int = 1, param_pspecs=None, accum_pspecs=None):
-    """param_pspecs: the reference pins gradients to the parameters' specs
-    on its 'model' axis; tensor parallelism is not trained here, so
-    passing them raises. accum_pspecs: the ZeRO-1 moment specs
-    (``opt_state_specs``, or their ``mu`` tree): under an active
+    """param_pspecs: the parameters' specs (``param_specs``), the
+    reference's gradient pins: under a 'model' axis a rank's gradients
+    are its blocks, so holding them is the pin; the specs also tell the
+    global norm which leaves are split. accum_pspecs: the ZeRO-1 moment
+    specs (``opt_state_specs``, or their ``mu`` tree): under an active
     data-parallel mesh the optimizer state holds each rank's slices
-    (``shard_opt_state``)."""
-    if param_pspecs is not None:
-        raise NotImplementedError(
-            "param_pspecs pin gradients to a 'model' mesh axis: tensor "
-            "parallelism, which the torch port does not train yet (ROADMAP "
-            "item 16c)")
+    (``sharding.train_state_specs``)."""
+    split: dict = {}  # the mesh the flags were made for, and the flags
 
     def train_step(params, opt_state: OptState, batch: dict):
         mesh = sharding.active_mesh()
         if mesh is not None and mesh.size == 1:
             mesh = None
+        tp = None
         if mesh is not None and mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"a 'model' mesh axis of {mesh.shape['model']} is tensor "
-                "parallelism, which the torch port does not train yet "
-                "(ROADMAP item 16c): use a mesh of 'data' (and 'pod') only")
+            tp = sharding.model_lanes(0)
+            if split.get("mesh") is not mesh:
+                split.update(mesh=mesh, flags=_sharded_flags(api, cfg, mesh, param_pspecs))
         leaves, treedef = tree_flatten(params)
         # None: no mesh, or a replicated batch that every rank runs whole
         rows = None if mesh is None else _row_block(batch, mesh)
@@ -228,14 +224,16 @@ def make_train_step(api: ModelApi, cfg: ArchConfig, opt_cfg: OptConfig,
         if total > 1:
             loss = div(loss, total)
             grads = [div(g, total) for g in grads]
+        gnorm = global_norm(grads, split.get("flags"), tp)
         dims = ([_data_dim(s) for s in _moment_specs(accum_pspecs, params)]
                 if mesh is not None and accum_pspecs is not None else [])
         if any(d is not None for d in dims):
             params, opt_state, gnorm = _zero1_update(grads, opt_state, params,
-                                                     opt_cfg, dims, mesh)
+                                                     opt_cfg, dims, mesh, gnorm)
         else:
             params, opt_state, gnorm = adamw_update(treedef.unflatten(grads),
-                                                    opt_state, params, opt_cfg)
+                                                    opt_state, params, opt_cfg,
+                                                    gnorm=gnorm)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    "step": opt_state.step}
 

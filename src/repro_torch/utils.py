@@ -198,3 +198,13 @@ def to_host(tree):
 def to_device(tree, device):
     """Every tensor of ``tree`` on ``device`` (no copy where it is already)."""
     return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: a model's ``init``
+    called with it (the inits place every tensor on ``gen.device``) builds
+    the parameter tree's shapes and dtypes, allocating nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")

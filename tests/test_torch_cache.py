@@ -17,8 +17,7 @@ from repro.data import synthetic_kv
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import cache as tc
 from torch_port_helpers import assert_cache_equal, jit_exact
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, D, CAP = 3, 2, 32, 256
 PROMPTS = (150, 90, 40)  # ragged rows: n_resid 22 / 26 / 40 after prefill

@@ -35,6 +35,7 @@ from repro_torch.distributed import grad_compress as gc
 from repro_torch.launch import train as launch_train
 from repro_torch.training import OptState
 from repro_torch.utils import tree_flatten
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tree(rng):

@@ -23,8 +23,7 @@ from repro_torch.core.cache import PackKVConfig
 from repro_torch.models import get_model
 from repro_torch.models import layers as tl
 from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _chunks(S: int, c: int) -> list[int]:

@@ -52,8 +52,7 @@ from torch_port_helpers import (
     margin,
     spec_tuple,
 )
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEW = ("smollm-135m", "minicpm-2b", "minitron-4b", "qwen3-32b")
 CAP, CALIB = 256, 192

@@ -1,11 +1,11 @@
 """The training half of the port's sharding rules, ``_moe_sharded`` and
-the refusals, against the reference (no ranks; tests/test_torch_dp_train.py
-spawns them).
+the launcher's production meshes, against the reference (no ranks;
+tests/test_torch_dp_train.py and tests/test_torch_tp_train.py spawn them).
 
   * ``param_specs``, ``opt_state_specs`` (ZeRO-1) and ``batch_specs`` equal
     ``repro``'s leaf for leaf over the parameter shapes of all eleven
     configs at full width and depth (the reference's ``jax.eval_shape``,
-    the port's init under ``FakeTensorMode``: nothing is allocated), on
+    the port's init on the meta device: nothing is allocated), on
     duck-typed meshes {data: 2, model: 4}, {data: 16, model: 16} and
     {pod: 2, data: 16, model: 16}; with the oracles of
     tests/test_distributed.py (qwen2-moe's 60 experts fall back to the Fe
@@ -13,14 +13,14 @@ spawns them).
   * ``cache_specs`` over the llama2-7b and qwen3-32b smoke caches (the
     reference's leading layer dim dropped: the port keeps a cache a
     layer);
-  * ``constrain`` returns its input with and without an active mesh;
+  * ``constrain`` returns its input with and without an active mesh (the
+    pins of tensor parallelism are the layers' exchanges);
   * ``_moe_sharded`` at (data, model) = (2, 1), (1, 2), (2, 2) against the
     reference's ``shard_map`` path (a child process with 4 forced host
     devices) on the qwen2-moe smoke MLP: an identity router gives both
     sides the same f32 logits, so the routing is compared exactly through
     the output; the output within MOE_ATOL, the aux loss within 1e-6;
-  * an active 'model' axis of 2 makes the train step refuse, naming
-    ROADMAP item 16c; ``--mesh prod`` / ``prod-multi`` refuse with the
+  * ``--mesh prod`` / ``prod-multi`` refuse any other world than their
     device count, in the reference's ``jax.make_mesh`` wording."""
 import os
 import subprocess
@@ -31,7 +31,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import ARCHS as J_ARCHS
 from repro.configs import get_arch as j_get_arch
@@ -43,14 +42,10 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import cache as tc
 from repro_torch.distributed import sharding as tsh
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import SpecMesh
 from repro_torch.models import get_model
 from repro_torch.models import moe as tmoe
-from repro_torch.training import init_opt_state, make_train_step
-from repro_torch.utils import tree_flatten, tree_flatten_with_path
-from torch_dp_helpers import OPT, token_batches
-
-torch.set_num_threads(2)
+from repro_torch.utils import MetaGenerator, tree_flatten, tree_flatten_with_path
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class FakeMesh:
@@ -86,16 +81,15 @@ def _port_specs(specs, like) -> dict:
 
 @pytest.fixture(scope="module")
 def shapes():
-    """{arch: (reference param shapes, port param shapes)} at full size."""
+    """{arch: (reference param shapes, port param shapes)} at full size
+    (the port's init on the meta device: shapes and dtypes only)."""
     out = {}
     for name in sorted(J_ARCHS):
         jcfg = j_get_arch(name)
         jp = jax.eval_shape(lambda k, c=jcfg: j_get_model(c).init(k, c),
                             jax.random.PRNGKey(0))
         cfg = get_arch(name)
-        with FakeTensorMode():
-            tp = get_model(cfg).init(torch.Generator(), cfg)
-        out[name] = (jp, tp)
+        out[name] = (jp, get_model(cfg).init(MetaGenerator(), cfg))
     return out
 
 
@@ -268,28 +262,7 @@ def test_moe_sharded_matches_reference(moe_case, data, model):
                                    rtol=0, atol=MOE_ATOL)
 
 
-# -- refusals --------------------------------------------------------------
-
-
-def test_model_axis_refused_naming_16c():
-    cfg = SMOKES["llama2-7b"]
-    api = get_model(cfg)
-    params = api.init(torch.Generator().manual_seed(0), cfg)
-    batch = {k: torch.from_numpy(v) for k, v in token_batches(cfg, 0, 1, 2, 16)[0].items()}
-    step = make_train_step(api, cfg, OPT)
-    tsh.set_active_mesh(SpecMesh({"data": 1, "model": 2}))
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 16c"):
-            step(params, init_opt_state(params), batch)
-    finally:
-        tsh.set_active_mesh(None)
-    # the same step without the mesh runs
-    _, _, m = step(params, init_opt_state(params), batch)
-    assert np.isfinite(float(m["loss"]))
-    # the reference's gradient pins are the 'model' axis's too
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16c"):
-        make_train_step(api, cfg, OPT, param_pspecs=tsh.param_specs(params, SpecMesh(
-            {"data": 1, "model": 2})))
+# -- the launcher's production meshes --------------------------------------
 
 
 @pytest.mark.parametrize("mesh,shape", [("prod", "(16, 16)"), ("prod-multi", "(2, 16, 16)")])

@@ -49,6 +49,7 @@ from repro.distributed import grad_compress as jgc
 from repro.models import get_model as ref_model
 from repro_torch.configs import SMOKES as PORT_SMOKES
 from repro_torch.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's train step under a (data = 2, model = 1) mesh: params and
 # moments replicated, each batch leaf placed by ``batch_specs``

@@ -19,11 +19,10 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLES = ROOT / "examples" / "torch"
-
-torch.set_num_threads(2)
 
 
 def _run(name: str, argv: list) -> str:

@@ -51,8 +51,7 @@ from torch_port_helpers import (
     margin,
     spec_tuple,
 )
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # hubert's final hidden states (bf16 after the final norm, magnitudes ~1-4)
 # after two layers: a few bf16 ulps, the matmuls summed in another order

@@ -22,8 +22,7 @@ from repro_torch.core.policy import get_policy
 from repro_torch.core.quantization import QuantConfig
 from repro_torch.core.repacking import median_repack
 from torch_port_helpers import assert_zero_fma_close, jit_exact
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 WIDTHS = [1, 2, 4, 8, 16]
 

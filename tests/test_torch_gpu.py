@@ -1625,6 +1625,48 @@ def test_data_parallel_two_ranks_on_one_card_bitwise(cuda, tmp_path):
         assert h.bitwise_diff(r1[name, "dp"], ctl) == [], name
 
 
+def _tp_runs(tmp_path, world: int, backend: str) -> list:
+    import torch.multiprocessing as mp
+
+    import torch_tp_helpers as tph
+
+    d = tmp_path / f"{backend}{world}"
+    d.mkdir()
+    mp.spawn(tph.gpu_tp_rank, args=(world, str(d)), nprocs=world, join=True)
+    return [torch.load(d / f"gpu_tp_rank{r}_{world}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _tp_bitwise(tmp_path, backend: str) -> None:
+    import torch_dp_helpers as h
+    import torch_tp_helpers as tph
+
+    two, four = _tp_runs(tmp_path, 2, backend), _tp_runs(tmp_path, 4, backend)
+    for name in tph.REF_MODELS:
+        want = two[0][name]
+        assert h.bitwise_diff(two[1][name], want) == [], name
+        for r, res in enumerate(four):
+            assert h.bitwise_diff(res[name], want) == [], (name, r)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_ranks_on_one_card_bitwise(cuda, tmp_path):
+    """Tensor parallelism with the ranks sharing cuda:0 over gloo: (data
+    1, model 2) at grad_accum 2 and (data 2, model 2) (ZeRO-1 moments) of
+    the llama2-7b and qwen2-moe-a2.7b smoke models are bitwise equal
+    (every step's loss, grad norm and step; every parameter; both
+    moments, gathered whole), on every rank."""
+    _tp_bitwise(tmp_path, "gloo")
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_four_cards_nccl_bitwise(cuda, tmp_path):
+    """The same over NCCL, a card a rank, where the machine has four."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("NCCL takes one rank a card: this needs four cards")
+    _tp_bitwise(tmp_path, "nccl")
+
+
 @pytest.mark.gpu
 def test_launcher_torchrun_ranks_bitwise(cuda, tmp_path):
     """``torchrun --nproc-per-node n -m repro_torch.launch.train --device

@@ -29,8 +29,7 @@ from repro_torch.kernels.packed_attention import (
 )
 from repro_torch.kernels.unpack import decode_tier_tile
 from torch_port_helpers import ref_cache_to_torch
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 # the reference's oracles, compiled (f32 math: compiling changes no rounding

@@ -29,8 +29,7 @@ from repro_torch.kernels.kpack_matvec import (
     kpack_tier_scores_torch,
 )
 from repro_torch.kernels.packed_attention import SPAN
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS = 2.0 ** -24
 

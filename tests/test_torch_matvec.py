@@ -46,8 +46,7 @@ from repro_torch.kernels.vpack_matvec import (
     vpack_tier_out_torch,
 )
 from torch_port_helpers import ref_cache_to_torch
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS = 2.0 ** -24
 j_scores = jax.jit(functools.partial(jops.packed_qk_scores, backend="xla"),

@@ -43,8 +43,7 @@ from repro_torch.models import get_model
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.utils import tree_flatten
 from torch_port_helpers import _flat, assert_zero_fma_close, jit_exact, ref_cache_arrays
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class FakeMesh:

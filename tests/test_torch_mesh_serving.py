@@ -36,8 +36,7 @@ from repro_torch.models import get_model
 from repro_torch.serving import Engine, EngineConfig, Request, SlotServer
 from repro_torch.utils import tree_flatten
 from torch_port_helpers import EXACT, steps_before_tie
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 PAGE = 128
 MESHES = [(1, 2), (1, 4), (2, 1), (2, 2)]

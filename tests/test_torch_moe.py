@@ -45,8 +45,7 @@ from repro_torch.core import cache as tc
 from repro_torch.models import moe as tmoe
 from repro_torch.serving import engine as te
 from torch_port_helpers import EXACT, LOGIT_ATOL, jit_exact, margin, spec_tuple
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 MOE = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 GAP = 1e-6  # no routed token this close to a top-k tie

@@ -32,6 +32,7 @@ from torch_moe_helpers import (  # noqa: F401  (smoke: the fixture)
     run,
     smoke,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_chunked_dense_and_paged_match_reference(smoke):

@@ -19,6 +19,7 @@ from torch_moe_helpers import (  # noqa: F401  (smoke: the fixture)
     run,
     smoke,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_spec_serving_matches_plain_and_reference(smoke):

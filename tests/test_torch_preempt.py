@@ -54,8 +54,7 @@ from torch_port_helpers import (
     ref_cache_to_torch,
     steps_before_tie,
 )
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, D, R = 3, 2, 64, 96
 PAGE = 128

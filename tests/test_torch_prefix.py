@@ -46,8 +46,7 @@ from torch_port_helpers import (
     margin,
     ref_cache_to_torch,
 )
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, D = 3, 2, 64
 CAP, PAGE, R = 1024, 256, 96

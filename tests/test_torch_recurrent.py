@@ -51,8 +51,7 @@ from torch_port_helpers import (
     ref_cache_to_torch,
     spec_tuple,
 )
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's bound of its chunked WKV against the sequential scan
 # (tests/test_rwkv_chunked.py); the port is held no looser

@@ -34,8 +34,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core import cache as tc
 from repro_torch.models import get_model
 from repro_torch.serving import engine as te
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAMILIES = ["rwkv6-1.6b", "recurrentgemma-9b"]
 

@@ -30,6 +30,7 @@ import test_scheduler_property as tsp
 from repro_torch.distributed import FaultEvent, FaultPlan, StragglerMonitor
 from repro_torch.serving import engine as te
 from test_scheduler_property import CASES, PREEMPT_CASES, _StubEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class _TorchStub(_StubEngine):

@@ -38,8 +38,7 @@ from torch_port_helpers import (
     spec_tuple,
     steps_before_tie,
 )
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CAP = 256

@@ -63,8 +63,7 @@ from test_torch_preempt import (
     smoke,  # noqa: F401  (the module-scoped fixture)
 )
 from torch_port_helpers import assert_cache_equal, jit_exact, ref_cache_to_torch, steps_before_tie
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, D = 3, 2, 64
 

@@ -58,8 +58,7 @@ from torch_port_helpers import (
     ref_cache_to_torch,
     steps_before_tie,
 )
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, CAP, R = 3, 256, 96
 PLENS = (191, 131, 156)  # post-prefill residuals 63 / 3 / 28

@@ -33,8 +33,7 @@ from repro_torch.kernels.packed_attention import (
     fused_packed_attention_torch,
 )
 from torch_port_helpers import ref_cache_to_torch
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 j_attention = jax.jit(jref.packed_decode_attention_ref)

@@ -33,8 +33,7 @@ from repro_torch.core import quantization as tq
 from repro_torch.core import repacking as tr
 from repro_torch.data import ShardedTokenStream, synthetic_kv, zipf_token_batch
 from torch_port_helpers import assert_zero_fma_close, jit_exact
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the llama2-7b-like profile of the storage-tier benchmarks (V: token
 # categories, half the channel outliers)

@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs import SMOKES
 from repro_torch.models import moe
 from torch_train_helpers import check_train_forward
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAMILIES = ["qwen2-moe-a2.7b", "rwkv6-1.6b", "recurrentgemma-9b", "internvl2-2b",
             "hubert-xlarge"]

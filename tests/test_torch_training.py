@@ -48,6 +48,7 @@ from torch_train_helpers import (
     ref_loss_grads,
     train_batch,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 DENSE = ["llama2-7b", "minicpm-2b"]
 

@@ -26,8 +26,7 @@ from repro_torch.core import tiered as tt
 from repro_torch.kernels.kpack_matvec import DEFAULT_TILE_L
 from repro_torch.kernels.packed_attention import SPAN
 from repro_torch.kernels.vpack_matvec import vpack_tier_out_paged_torch, vpack_tier_out_torch
-
-torch.set_num_threads(2)
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS = 2.0 ** -24
 

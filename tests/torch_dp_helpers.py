@@ -15,17 +15,16 @@ from repro_torch.configs import SMOKES, get_arch
 from repro_torch.distributed import sharding
 from repro_torch.models import get_model
 from repro_torch.training import OptConfig, init_opt_state, make_train_step
-from repro_torch.training.train import gather_opt_state, shard_opt_state
 from repro_torch.utils import tree_flatten_with_path
 
 OPT = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
 
 
 @contextlib.contextmanager
-def process_group(rank: int, world: int, init_file: str):
-    """A gloo group over ``init_file`` (no TCP port: two test files may
-    spawn ranks at once), destroyed on the way out."""
-    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+def process_group(rank: int, world: int, init_file: str, backend: str = "gloo"):
+    """A gloo group (or ``backend``'s) over ``init_file`` (no TCP port: two
+    test files may spawn ranks at once), destroyed on the way out."""
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
     try:
         yield
@@ -47,39 +46,62 @@ def flat(tree) -> dict:
 
 def run_steps(name: str, batches: list, *, mesh=None, grad_accum: int = 1,
               zero: bool = True, device="cpu", smoke: bool = True,
-              seed: int = 0, init: str | None = None, first: bool = False) -> dict:
+              seed: int = 0, init: str | None = None, first: bool = False,
+              pin: bool = False, opt: OptConfig = OPT, save_at=None,
+              resume=None, f32: bool = False) -> dict:
     """``len(batches)`` steps of config ``name`` from ``seed``'s init (or
-    the parameters saved at ``init``): under ``mesh`` (set active for the
-    run; ZeRO-1 moments when ``zero``) or, with mesh None, as one process.
-    Returns each step's metrics and the final parameters and (full)
-    moments on the CPU; with ``first``, also the parameters and first
-    moments after the first step (``"first"``)."""
+    the parameters saved at ``init``, or the checkpoint ``resume`` = (step,
+    directory)): under ``mesh`` (set active for the run; each rank holds
+    its blocks of the parameters and moments, ``sharding.storage_specs``;
+    ZeRO-1 moments when ``zero``; ``pin`` passes ``param_pspecs``) or,
+    with mesh None, as one process. ``save_at`` = (step, directory): a
+    checkpoint of full arrays after that step. Returns each step's
+    metrics and the final parameters and (full) moments on the CPU; with
+    ``first``, also the parameters and first moments after the first step
+    (``"first"``); ``f32``: the parameters cast to f32 first."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_sliced
+    from repro_torch.utils import tree_map
+
     cfg = SMOKES[name] if smoke else get_arch(name)
     api = get_model(cfg)
     if init is None:
         params = api.init(torch.Generator(device=device).manual_seed(seed), cfg)
     else:
         params = torch.load(init, map_location=device)
-    opt = init_opt_state(params)
+    if f32:
+        params = tree_map(lambda x: x.float(), params)
+    state = (params, init_opt_state(params))
+    pspecs = sharding.param_specs(params, mesh) if mesh is not None else None
     specs = sharding.opt_state_specs(params, mesh) if mesh is not None and zero else None
-    if specs is not None:
-        opt = shard_opt_state(opt, specs, mesh)
-    step_fn = make_train_step(api, cfg, OPT, grad_accum, accum_pspecs=specs)
-    whole = lambda o: o if specs is None else gather_opt_state(o, specs, params, mesh)
+    sspecs = sharding.train_state_specs(params, mesh, zero) if mesh is not None else None
+    if resume is not None:
+        state, _ = restore_sliced(resume[1], resume[0], state, sspecs, mesh, device)
+    elif mesh is not None:
+        state = sharding.shard_tree(state, sspecs, mesh)
+    params, ostate = state
+    step_fn = make_train_step(api, cfg, opt, grad_accum, accum_pspecs=specs,
+                              param_pspecs=pspecs if pin else None)
+    whole = ((lambda st: st) if mesh is None else
+             (lambda st: sharding.gather_tree(st, sspecs, mesh)))
     metrics, out = [], {}
     sharding.set_active_mesh(mesh)
     try:
         for b in batches:
             tb = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
-            params, opt, m = step_fn(params, opt, tb)
+            params, ostate, m = step_fn(params, ostate, tb)
             metrics.append({k: v.detach().cpu().clone() for k, v in m.items()})
             if first and len(metrics) == 1:
-                out["first"] = {"params": flat(params), "mu": flat(whole(opt).mu)}
+                p_full, o_full = whole((params, ostate))
+                out["first"] = {"params": flat(p_full), "mu": flat(o_full.mu)}
+            if save_at is not None and len(metrics) == save_at[0]:
+                ckpt = AsyncCheckpointer(save_at[1], specs=sspecs, mesh=mesh)
+                ckpt.submit(save_at[0], (params, ostate))
+                ckpt.close()
     finally:
         sharding.set_active_mesh(None)
-    opt = whole(opt)
-    return dict(out, metrics=metrics, params=flat(params), mu=flat(opt.mu),
-                nu=flat(opt.nu), step=opt.step.cpu().clone())
+    params, ostate = whole((params, ostate))
+    return dict(out, metrics=metrics, params=flat(params), mu=flat(ostate.mu),
+                nu=flat(ostate.nu), step=ostate.step.cpu().clone())
 
 
 def bits(x: torch.Tensor) -> bytes:

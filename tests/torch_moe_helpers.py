@@ -34,8 +34,6 @@ from repro_torch.models import transformer as ttf
 from repro_torch.serving import engine as te
 from torch_port_helpers import EXACT, LOGIT_ATOL, margin, spec_tuple
 
-torch.set_num_threads(2)
-
 MOE = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 GAP = 1e-6  # the port's own routing: no token this close to a top-k tie
 ROUTE_NOISE = 1e-2  # a routing difference from the reference sits this close
